@@ -1,0 +1,218 @@
+"""Coarse-boundary de-novo repeat discovery (reference stage "FMEA").
+
+Counterpart of the JAX `pipeline/coarse.py`, selfjoin strategy: the
+whole-genome k-mer self-join finds every interval that aligns somewhere
+else, HSPs are chained exactly on the host, and candidates are deduped
+with 10 bp rounding + >=95% mutual-overlap merging (reference
+`Util.py:4344-4395`).  Genomes past `max_selfjoin_bp` run as overlapping
+chunks on the chunk grid the JAX package uses.  The segment-pair
+("pairs") strategy and the mesh path are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from hite_tpu_torch.config import AlignConfig
+from hite_tpu_torch.genome import Genome
+from hite_tpu_torch.ops.chain import chain_hsps_host
+from hite_tpu_torch.ops.selfjoin import selfjoin_scan_packed, selfjoin_sorted
+from hite_tpu_torch.utils import intervals as iv
+from hite_tpu_torch.utils.log import logger, stage_timer
+
+
+@dataclass(frozen=True)
+class CoarseParams:
+    """Kernel geometry (same fields and defaults as the JAX package)."""
+
+    seg_len: int = 131_072
+    stride: int = 2
+    max_hits: int = 8
+    diag_band: int = 32
+    run_gap: int = 96
+    min_seeds: int = 4
+    max_hsps: int = 2048
+    max_chains: int = 512
+    pair_batch: int = 16
+    strategy: str = "selfjoin"
+    window: int = 4
+    max_hsps_global: int = 32_768
+    max_seed_pairs: int = 1 << 20
+    max_budget_slices: int = 64
+    hard_budget_slices: int = 1024
+    max_selfjoin_bp: int = 1 << 26
+
+
+def _chunk_grid(L: int, C: int, halo: int) -> List[int]:
+    """Overlapping-chunk start offsets (the JAX package's grid)."""
+    if L <= C:
+        return [0]
+    step = max(1, C - 2 * halo)
+    starts = [min(s, max(0, L - C))
+              for s in range(0, max(1, L - 2 * halo), step)]
+    return sorted(set(starts))
+
+
+def chunk_slice(flat: torch.Tensor, c0: int, C: int) -> torch.Tensor:
+    """flat[c0 : c0 + C] with the start clamped in bounds
+    (`lax.dynamic_slice` semantics)."""
+    c0 = min(max(int(c0), 0), flat.shape[0] - C)
+    return flat[c0 : c0 + C]
+
+
+def _selfjoin_intervals(genome: Genome, cfg: AlignConfig, p: CoarseParams,
+                        use_masked: bool, halo: int = 30_000) -> np.ndarray:
+    """Candidate intervals via the whole-genome self-join (chunked past
+    `p.max_selfjoin_bp`; halo-overlap duplicates collapse in dedup)."""
+    flat_d, L = genome.device_flat_padded(use_masked)
+    Lp = flat_d.shape[0]
+    C = p.max_selfjoin_bp
+    if Lp <= C:
+        return _selfjoin_chunk(flat_d, 0, cfg, p)
+    out: List[np.ndarray] = []
+    for c0 in _chunk_grid(L, C, halo):
+        got = _selfjoin_chunk(chunk_slice(flat_d, c0, C), c0, cfg, p)
+        if len(got):
+            out.append(got)
+    if not out:
+        return np.zeros((0, 2), dtype=np.int64)
+    return np.concatenate(out)
+
+
+# scan slices per call (bounds the [K, S] scan temporaries)
+SCAN_SLICES_PER_PROGRAM = 64
+
+
+def _scan_windowed(s_dbin, s_qpos, s_spos, n_pairs_d, slices: int,
+                   cfg: AlignConfig, p: CoarseParams) -> np.ndarray:
+    """selfjoin_scan_packed over `slices` budget slices, at most
+    SCAN_SLICES_PER_PROGRAM per call (window boundaries split runs like
+    slice boundaries; chaining re-merges them)."""
+    W = SCAN_SLICES_PER_PROGRAM
+    kw = dict(k=cfg.kmer_size, run_gap=p.run_gap, min_seeds=p.min_seeds,
+              min_hsp_len=cfg.min_hsp_len, max_hsps=p.max_hsps_global,
+              max_seed_pairs=p.max_seed_pairs)
+    if slices <= W:
+        return selfjoin_scan_packed(s_dbin, s_qpos, s_spos, n_pairs_d,
+                                    budget_slices=slices, **kw).cpu().numpy()
+    S = p.max_seed_pairs
+    n = s_qpos.shape[0]
+    outs = []
+    for w0 in range(0, slices, W):
+        start = min(w0 * S, max(0, n - W * S))
+        sub = [a[start : start + W * S] for a in (s_dbin, s_qpos, s_spos)]
+        outs.append(selfjoin_scan_packed(
+            sub[0], sub[1], sub[2], n_pairs_d, budget_slices=W,
+            **kw).cpu().numpy())
+    return np.concatenate(outs, axis=1)
+
+
+def _sized_slices(n_pairs: int, p: CoarseParams) -> int:
+    """Scan-slice count (a power of two) sized from the measured seed-pair
+    count, auto-scaling past the soft cap up to the hard one."""
+    need = -(-max(n_pairs, 1) // p.max_seed_pairs)
+    slices = 1 if need <= 1 else 1 << (need - 1).bit_length()
+    if slices > p.max_budget_slices:
+        if slices <= p.hard_budget_slices:
+            logger.info(
+                "coarse.selfjoin: %d seed pairs -> auto-scaled to %d scan "
+                "slices (soft cap %d)", n_pairs, slices, p.max_budget_slices)
+        else:
+            slices = p.hard_budget_slices
+            logger.warning(
+                "coarse.selfjoin: %d seed pairs saturate even the hard "
+                "%d-slice budget; high-diagonal-band seeds dropped",
+                n_pairs, slices)
+    elif slices > 1:
+        logger.info("coarse.selfjoin: %d seed pairs -> %d scan slices",
+                    n_pairs, slices)
+    return slices
+
+
+def _chunk_hsps_to_intervals(packed: np.ndarray, Lp: int,
+                             cfg: AlignConfig) -> np.ndarray:
+    """Packed HSP rows of one chunk -> chained chunk-local intervals."""
+    valid = packed[4].astype(bool)
+    qs, qe, ss, se = (packed[i][valid] for i in range(4))
+    out: List[np.ndarray] = []
+    for m, is_rc in ((ss < Lp, False), (ss >= Lp, True)):
+        if not m.any():
+            continue
+        chains = chain_hsps_host(
+            qs[m], qe[m], ss[m], se[m],
+            extend_threshold=cfg.fixed_extend_base_threshold, min_len=80)
+        if not len(chains):
+            continue
+        out.append(chains[:, 0:2])
+        s_iv = chains[:, 2:4]
+        if is_rc:
+            s_iv = np.stack([2 * Lp - s_iv[:, 1], 2 * Lp - s_iv[:, 0]],
+                            axis=1)
+        out.append(s_iv)
+    if not out:
+        return np.zeros((0, 2), dtype=np.int64)
+    return np.concatenate(out).astype(np.int64)
+
+
+def _selfjoin_chunk(flat_d: torch.Tensor, offset: int, cfg: AlignConfig,
+                    p: CoarseParams) -> np.ndarray:
+    """Self-join one device-resident chunk; returns flat-genome intervals."""
+    Lp = flat_d.shape[0]
+    with stage_timer("coarse.selfjoin"):
+        s_dbin, s_qpos, s_spos, n_pairs_d = selfjoin_sorted(
+            flat_d, k=cfg.kmer_size, window=p.window, diag_band=p.diag_band)
+        slices = _sized_slices(int(n_pairs_d), p)
+        packed = _scan_windowed(s_dbin, s_qpos, s_spos, n_pairs_d,
+                                slices, cfg, p)
+    with stage_timer("coarse.chain"):
+        got = _chunk_hsps_to_intervals(packed, Lp, cfg)
+    return got + offset if len(got) else got
+
+
+def coarse_discover(
+    genome: Genome,
+    cfg: AlignConfig,
+    params: Optional[CoarseParams] = None,
+    use_masked: bool = True,
+    max_repeat_len: int = 30_000,
+    min_repeat_len: int = 80,
+) -> np.ndarray:
+    """Candidate repeat intervals (flat coords): int64 [N, 2], deduped."""
+    p = params or CoarseParams()
+    if p.strategy != "selfjoin":
+        raise NotImplementedError(
+            f"coarse strategy {p.strategy!r} is not ported; only 'selfjoin'")
+    intervals = _selfjoin_intervals(genome, cfg, p, use_masked,
+                                    halo=max_repeat_len)
+    return _dedup_intervals(intervals, genome, cfg, min_repeat_len,
+                            max_repeat_len)
+
+
+def _dedup_intervals(intervals: np.ndarray, genome: Genome,
+                     cfg: AlignConfig, min_repeat_len: int,
+                     max_repeat_len: int) -> np.ndarray:
+    """Length gate, 10bp-rounded dedup, >=95%-mutual-overlap merge,
+    contig containment (`Util.py:4344-4395`)."""
+    if len(intervals) == 0:
+        return intervals
+    with stage_timer("coarse.dedup"):
+        lens = intervals[:, 1] - intervals[:, 0]
+        keep = (lens >= min_repeat_len) & (lens < max_repeat_len)
+        intervals = intervals[keep]
+        intervals, _ = iv.dedup(intervals, q=cfg.round_coord_bp)
+        groups = iv.mutual_overlap_groups(intervals, frac=cfg.merge_overlap)
+        lens = intervals[:, 1] - intervals[:, 0]
+        best: dict = {}
+        for i, g in enumerate(groups):
+            if g not in best or lens[i] > lens[best[g]]:
+                best[g] = i
+        intervals = intervals[sorted(best.values())]
+    ok = genome.in_contig(intervals[:, 0], intervals[:, 1])
+    intervals = intervals[ok]
+    logger.info("coarse_discover: %d candidate repeat intervals",
+                len(intervals))
+    return intervals

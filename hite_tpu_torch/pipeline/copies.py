@@ -1,0 +1,367 @@
+"""Genome-wide full-length copy retrieval (minimap2 replacement).
+
+Counterpart of the JAX `pipeline/copies.py`, join strategy: each batch of
+candidates is mapped against the whole genome by ONE sort-merge k-mer join
+(`ops.libjoin`) — indexed against a genome stream sorted once and cached
+on the genome, or chunked with a halo past `max_libjoin_bp` — then chained
+exactly per (candidate, strand, contig) on the host; chains covering >=
+`min_coverage` of the candidate on both sides are its copies.  Candidates
+that share join k-mers are dealt into similarity waves so none starves of
+pairing slots.  The legacy "segments" mapper and the mesh path are not
+ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from hite_tpu_torch.config import AlignConfig
+from hite_tpu_torch.genome import Genome
+from hite_tpu_torch.ops.chain import chain_hsps_host
+from hite_tpu_torch.ops.libjoin import (
+    libjoin_genome_sorted, libjoin_pairs, libjoin_pairs_indexed,
+    libjoin_scan_packed,
+)
+from hite_tpu_torch.pipeline.candidates import pad_rows
+from hite_tpu_torch.pipeline.coarse import chunk_slice
+from hite_tpu_torch.utils.log import logger
+
+
+@dataclass
+class CopyHit:
+    """One genomic copy of a candidate: flat interval + strand + seeds."""
+
+    start: int
+    end: int
+    strand: int      # 0 = forward, 1 = reverse
+    nseeds: int
+
+
+class GenomeIndex:
+    """Genome handle for copy retrieval (the join needs only the genome's
+    cached device upload)."""
+
+    def __init__(self, genome: Genome, cfg: AlignConfig,
+                 seg_len: int = 131_072, use_masked: bool = False):
+        self.genome = genome
+        self.cfg = cfg
+        self.seg_len = seg_len
+        self.use_masked = use_masked
+
+
+class CopyFinder:
+    """Batched candidate -> genome copy mapping by sort-merge joins."""
+
+    def __init__(self, index: GenomeIndex, *, diag_band: int = 32,
+                 run_gap: int = 96, min_seeds: int = 4, fill_w: int = 8):
+        self.index = index
+        self.diag_band = diag_band
+        self.run_gap = run_gap
+        self.min_seeds = min_seeds
+        self._join_slice = 1 << 20
+        self._join_quota = 1 << 19
+        self._join_budget = 1 << 20
+        self._join_max_slices = 64
+        self._join_fill_w = fill_w
+        self._join_max_occ = 1024
+        self._join_max_hsps = 1 << 15
+        self.max_libjoin_bp = 1 << 24
+
+    def find_copies(self, cand_seqs: Sequence[np.ndarray], *,
+                    min_coverage: float = 0.95, max_copies: int = 100,
+                    max_len_ratio: float = 1.2, min_abs_len: int = 0
+                    ) -> List[List[CopyHit]]:
+        """Up to max_copies full-length CopyHits per candidate;
+        `min_abs_len > 0` additionally keeps fragment hits of that size."""
+        if not cand_seqs:
+            return []
+        return self._find_copies_join(
+            cand_seqs, min_coverage=min_coverage, max_copies=max_copies,
+            max_len_ratio=max_len_ratio, min_abs_len=min_abs_len)
+
+    def _find_copies_join(self, cand_seqs, *, min_coverage, max_copies,
+                          max_len_ratio, min_abs_len=0):
+        """Deal k-mer-sharing candidates into waves of <= fill_w/2 members
+        of one group; each wave is one whole-genome join."""
+        groups = _kmer_sketch_groups(cand_seqs, k=self.index.cfg.kmer_size,
+                                     thresh=0.15)
+        chunk = max(1, self._join_fill_w // 2)
+        waves: dict = {}
+        seen: dict = {}
+        for i, g in enumerate(groups):
+            j = seen.get(g, 0)
+            seen[g] = j + 1
+            waves.setdefault(j // chunk, []).append(i)
+        kw = dict(min_coverage=min_coverage, max_copies=max_copies,
+                  max_len_ratio=max_len_ratio, min_abs_len=min_abs_len)
+        if len(waves) == 1:
+            return self._find_copies_join_batch(cand_seqs, **kw)
+        logger.info("find_copies.join: %d candidates in %d similarity waves",
+                    len(cand_seqs), len(waves))
+        out: List[List[CopyHit]] = [[] for _ in cand_seqs]
+        for _, idxs in sorted(waves.items()):
+            sub = self._find_copies_join_batch([cand_seqs[i] for i in idxs],
+                                               **kw)
+            for i, hits in zip(idxs, sub):
+                out[i] = hits
+        return out
+
+    def _find_copies_join_batch(self, cand_seqs, *, min_coverage,
+                                max_copies, max_len_ratio, min_abs_len=0):
+        """One whole-genome join for a batch of candidates + exact chaining
+        per (candidate, strand, contig) of the compacted HSP rows."""
+        idx = self.index
+        cfg = idx.cfg
+        genome = idx.genome
+        dev = genome.device
+        k = cfg.kmer_size
+        n_c = len(cand_seqs)
+        out: List[List[CopyHit]] = [[] for _ in cand_seqs]
+
+        lens = np.array([len(s) for s in cand_seqs], dtype=np.int64)
+        if lens.sum() == 0:
+            return out
+        starts = np.concatenate([[0], np.cumsum(lens[:-1] + 1)])
+        P = pad_rows(int(lens.sum()) + n_c, min_rows=1024)
+        cand_flat = np.full(P, 4, dtype=np.uint8)
+        cand_id = np.zeros(P, dtype=np.int32)
+        for i, s in enumerate(cand_seqs):
+            cand_flat[starts[i] : starts[i] + lens[i]] = s
+            cand_id[starts[i] : starts[i] + lens[i]] = i
+        cand_flat_d = torch.from_numpy(cand_flat).to(dev)
+        cand_id_d = torch.from_numpy(cand_id).to(dev)
+        lens_f = np.maximum(lens.astype(np.float64), 1)
+
+        def _one_chunk(chunk_d, c0: int, Cl: int, g_sorted=None) -> None:
+            # a chunk whose seed pairs overflow the per-slice quota RETRIES
+            # with a doubled quota (at most twice) instead of dropping seeds
+            quota = self._join_quota
+            jkw = dict(k=k, diag_band=self.diag_band,
+                       fill_w=self._join_fill_w, max_occ=self._join_max_occ,
+                       slice_size=self._join_slice)
+            for _attempt in range(3):
+                if g_sorted is not None:
+                    res = libjoin_pairs_indexed(*g_sorted, cand_flat_d,
+                                                cand_id_d, slice_quota=quota,
+                                                **jkw)
+                else:
+                    res = libjoin_pairs(chunk_d, cand_flat_d, cand_id_d,
+                                        slice_quota=quota, **jkw)
+                s_cand, s_dbin, s_qpos, s_spos, counts_d = res
+                n_total, n_emit = (int(x) for x in counts_d.cpu().numpy())
+                if n_total <= n_emit or quota >= 4 * self._join_quota:
+                    break
+                quota *= 2
+                logger.info(
+                    "find_copies.join: %d seed pairs exceeded the "
+                    "per-slice quota (%d emitted); retrying at quota %d",
+                    n_total, n_emit, quota)
+            if n_total > n_emit:
+                logger.warning(
+                    "find_copies.join: %d seed pairs exceeded the per-slice "
+                    "quota; %d emitted", n_total, n_emit)
+            need = -(-max(n_emit, 1) // self._join_budget)
+            slices = 1 if need <= 1 else 1 << (need - 1).bit_length()
+            if slices > self._join_max_slices:
+                logger.warning(
+                    "find_copies.join: %d pairs exceed %d slices x %d "
+                    "budget; tail dropped", n_emit, self._join_max_slices,
+                    self._join_budget)
+                slices = self._join_max_slices
+            packed = libjoin_scan_packed(
+                s_cand, s_dbin, s_qpos, s_spos, k=k, run_gap=self.run_gap,
+                min_seeds=self.min_seeds, min_hsp_len=cfg.min_hsp_len,
+                max_hsps=self._join_max_hsps,
+                max_seed_pairs=self._join_budget,
+                budget_slices=slices).cpu().numpy()
+            cand, qs, qe, ss, se, ns, valid = (
+                packed[i].astype(np.int64) for i in range(7))
+            n_good = int(packed[7, 0])
+            if n_good > int(valid.sum()):
+                logger.warning(
+                    "find_copies.join: %d HSPs exceed the %d output quota; "
+                    "truncated", n_good, int(valid.sum()))
+            m = (valid != 0) & (cand < n_c)
+            if not m.any():
+                return
+            cand, qs, qe, ss, se, ns = (a[m] for a in
+                                        (cand, qs, qe, ss, se, ns))
+            strand = (ss >= Cl).astype(np.int64)
+            # chains never span contigs: subject contig joins the group key
+            mid = (ss + se) // 2
+            fwd_mid = np.where(strand == 1, 2 * Cl - mid, mid) + c0
+            ctg, _ = genome.contig_of(
+                np.clip(fwd_mid, 0, len(genome.flat) - 1))
+            key = (cand * 2 + strand) * (len(genome.names) + 1) + ctg
+            order = np.argsort(key, kind="stable")
+            key = key[order]
+            cand, qs, qe, ss, se, ns = (a[order] for a in
+                                        (cand, qs, qe, ss, se, ns))
+            bounds = np.concatenate(
+                [[0], np.nonzero(np.diff(key))[0] + 1, [len(key)]])
+            for b0, b1 in zip(bounds[:-1], bounds[1:]):
+                ci = int(cand[b0])
+                st = int(strand[b0])
+                g_qs, g_qe = qs[b0:b1], qe[b0:b1]
+                g_ss, g_se, g_ns = ss[b0:b1], se[b0:b1], ns[b0:b1]
+                T_ci = int(min(cfg.fixed_extend_base_threshold,
+                               max(100, lens[ci] // 2)))
+                ch = chain_hsps_host(g_qs, g_qe, g_ss, g_se,
+                                     extend_threshold=T_ci, min_len=50,
+                                     diag_tol=T_ci)
+                if min_abs_len:
+                    # tight-diagonal fragment pass: keeps per-unit chains
+                    # of head-to-tail tandem arrays as fragment hits
+                    ch2 = chain_hsps_host(g_qs, g_qe, g_ss, g_se,
+                                          extend_threshold=T_ci, min_len=50,
+                                          diag_tol=self.run_gap)
+                    if len(ch2):
+                        ch = np.concatenate([ch, ch2]) if len(ch) else ch2
+                if not len(ch):
+                    continue
+                lf = lens_f[ci]
+                qlen = ch[:, 1] - ch[:, 0]
+                slen = ch[:, 3] - ch[:, 2]
+                keep = ((qlen >= min_coverage * lf)
+                        & (slen >= min_coverage * lf)
+                        & (slen <= max_len_ratio * lf))
+                if min_abs_len:
+                    keep |= ((qlen >= min_abs_len) & (slen >= 0.7 * qlen)
+                             & (slen <= 1.5 * qlen))
+                if not keep.any():
+                    continue
+                ch = ch[keep]
+                cont = ((g_qs[None, :] >= ch[:, 0:1])
+                        & (g_qe[None, :] <= ch[:, 1:2])
+                        & (g_ss[None, :] >= ch[:, 2:3])
+                        & (g_se[None, :] <= ch[:, 3:4]))
+                ch_ns = cont @ g_ns
+                if st == 1:
+                    s0 = 2 * Cl - ch[:, 3]
+                    s1 = 2 * Cl - ch[:, 2]
+                else:
+                    s0, s1 = ch[:, 2], ch[:, 3]
+                for j in range(len(ch)):
+                    out[ci].append(CopyHit(
+                        start=c0 + int(s0[j]), end=c0 + int(s1[j]),
+                        strand=st, nseeds=int(ch_ns[j])))
+
+        flat_d, _L = genome.device_flat_padded(idx.use_masked)
+        Lp = int(flat_d.shape[0])
+        if Lp <= self.max_libjoin_bp:
+            # INDEXED join: the sorted two-strand stream is built once per
+            # genome and cached on the genome's device cache
+            ck = ("join_sorted", idx.use_masked, k, None)
+            g_sorted = genome._device_cache.get(ck)
+            if g_sorted is None:
+                g_sorted = libjoin_genome_sorted(flat_d, k=k)
+                genome._device_cache[ck] = g_sorted
+            _one_chunk(flat_d, 0, Lp, g_sorted=g_sorted)
+        else:
+            # chunks with a halo: any copy lies whole in at least one chunk;
+            # cross-chunk duplicates collapse in the dedup tail
+            C = self.max_libjoin_bp
+            halo = int(min(C // 4, max(65_536, 2 * lens.max())))
+            step = C - 2 * halo
+            for c0 in range(0, max(1, Lp - 2 * halo), step):
+                c0 = min(c0, Lp - C)
+                _one_chunk(chunk_slice(flat_d, c0, C), c0, C)
+                if c0 == Lp - C:
+                    break
+        return _dedup_cap(out, max_copies)
+
+
+_MINHASH_SALTS = np.arange(1, 65, dtype=np.uint64) * np.uint64(
+    0x9E3779B97F4A7C15)
+
+
+def _kmer_sketch_groups(seqs: Sequence[np.ndarray], k: int,
+                        thresh: float = 0.15, sketch: int = 64,
+                        linkage: str = "single") -> List[int]:
+    """Group candidates by exact k-mer sharing (min-hash Jaccard).
+
+    "single": union-find components over pairs >= thresh (join waves);
+    "greedy": cd-hit-style founders in length-ascending order (family
+    representatives)."""
+    n = len(seqs)
+    if n <= 1:
+        return [0] * n
+    salts = _MINHASH_SALTS[:sketch]
+    sk = np.full((n, sketch), np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
+    has_sketch = np.zeros(n, bool)
+    for i, s in enumerate(seqs):
+        v = np.asarray(s, np.int64)
+        if len(v) < k:
+            continue
+        m = len(v) - k + 1
+        ok = np.ones(m, bool)
+        code = np.zeros(m, np.int64)
+        for j in range(k):
+            w = v[j : m + j]
+            ok &= w < 4
+            code = code * 4 + np.where(w < 4, w, 0)
+        codes = np.unique(code[ok])
+        if not len(codes):
+            continue
+        h = (codes.astype(np.uint64)[:, None] ^ salts[None, :]) \
+            * np.uint64(0xC2B2AE3D27D4EB4F)
+        sk[i] = h.min(axis=0)
+        has_sketch[i] = True
+    if linkage == "greedy":
+        order = sorted(range(n), key=lambda i: len(seqs[i]))
+        group = np.full(n, -1, np.int64)
+        founders: List[int] = []
+        for i in order:
+            if not has_sketch[i]:
+                group[i] = i
+                continue
+            if founders:
+                agree = (sk[founders] == sk[i][None, :]).mean(axis=1)
+                j = int(np.argmax(agree))
+                if agree[j] >= thresh:
+                    group[i] = founders[j]
+                    continue
+            founders.append(i)
+            group[i] = i
+        return [int(g) for g in group]
+
+    parent = np.arange(n)
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = int(parent[x])
+        return x
+
+    B = max(1, (1 << 24) // (n * sketch + 1))
+    for a0 in range(0, n, B):
+        agree = (sk[a0 : a0 + B, None, :] == sk[None, :, :]).mean(axis=2)
+        ii, jj = np.nonzero(agree >= thresh)
+        for a, b in zip(ii + a0, jj):
+            if a < b and has_sketch[a] and has_sketch[b]:
+                ra, rb = find(int(a)), find(int(b))
+                if ra != rb:
+                    parent[ra] = rb
+    return [find(i) for i in range(n)]
+
+
+def _dedup_cap(out: List[List[CopyHit]], max_copies: int
+               ) -> List[List[CopyHit]]:
+    """Drop >=80%-overlapping duplicate hits, cap at max_copies per
+    candidate (prefer more seeds)."""
+    for c, hits in enumerate(out):
+        hits.sort(key=lambda h: -h.nseeds)
+        kept: List[CopyHit] = []
+        for h in hits:
+            dup = any(min(h.end, g.end) - max(h.start, g.start)
+                      > 0.8 * (h.end - h.start) for g in kept)
+            if not dup:
+                kept.append(h)
+            if len(kept) >= max_copies:
+                break
+        out[c] = kept
+    return out
