@@ -3,11 +3,16 @@
 Phases, each printing its own lines:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every CUDA kernel and the host chaining library, from the
-     sources in this checkout, all compilers at once;
+     sources in this checkout, all compilers at once; registers and spills
+     of each SW instantiation (ptxas) and the SASS instructions of its
+     step loop per cell (cuobjdump);
   3. the SW kernel against its plain PyTorch version on the card, bit-exact
      on all 7 outputs, at the TIR gate, annotation, LTR and longer widths,
-     a ragged batch and N-heavy rows; kernel ms (CUDA events), plain ms,
-     and the bound from the cell count;
+     a ragged batch and N-heavy rows, and at border shapes that force each
+     variant (lane groups, bands, unpacked fields); kernel ms (profiler
+     device time, and CUDA events a call), plain ms, and the bound from the
+     recurrence's int32 operations; each R (rows a lane) at those shapes
+     against the plan's pick;
   4. the TIR discovery path at the headline size (the 8 Mbp clean bench
      substrate, seed 7) on cuda, with the launch counts zeroed just before
      and read just after; the 3 planted TIR families must be accepted; and
@@ -23,6 +28,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -35,11 +42,20 @@ from hite_tpu_torch.native import runtime as native_rt
 from hite_tpu_torch.ops import terminal
 from hite_tpu_torch.utils import log as hlog
 
-# published H100 SXM peaks: HBM bytes/s, and the
-# non-tensor-core 32-bit rate, used here for the SW kernel's int32 ALU work
+# published H100 SXM figures: HBM bytes/s (data sheet); the int32 rate,
+# 64 INT32 lanes an SM (Hopper white paper) x 132 SMs x 1.98 GHz, the boost
+# clock at which the data sheet's 67 TFLOP/s float32 is 132 x 128 lanes x
+# 2 (FMA); and the instruction rate, 4 schedulers an SM of one warp instruction
+# (32 lanes) a clock, which prices the SASS diagnostic below
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-SW_OPS_PER_CELL = 30
+PEAK_INT32_S = 132 * 64 * 1.98e9
+PEAK_INSTR_S = 132 * 4 * 32 * 1.98e9
+# int32 operations the recurrence needs per DP cell, as the plain version
+# states it, whatever kernel computes it: the substitution 2 (compare,
+# select), the three candidates 3 (adds), h = max(0, ...) 3, the first
+# argmax 3 (compares), the carried start, matches and length 4 x 3 selects
+# + 2 adds, and the running best 1 compare + 7 selects
+SW_OPS_PER_CELL = 2 + 3 + 3 + 3 + 14 + 8
 
 SW_SHAPES = [  # (label, B, La, Lb, n_frac)
     ("tir_gate", 4096, 40, 40, 0.0),
@@ -50,6 +66,25 @@ SW_SHAPES = [  # (label, B, La, Lb, n_frac)
     ("ragged", 1001, 37, 53, 0.0),
     ("n_heavy", 256, 300, 300, 0.4),
 ]
+# border shapes and forced variants: (label, B, La, Lb, n_frac, R, packed,
+# planted best cell (row, column) or None)
+SW_BORDERS = [
+    ("one_band_plus_1", 16, 257, 300, 0.0, 8, None, None),
+    ("one_alignment_32_bands", 1, 4000, 500, 0.0, 4, None, None),
+    ("best_on_band_row_and_last_col", 8, 512, 400, 0.0, 8, None, (256, 400)),
+    ("best_on_band_row_R4", 6, 300, 200, 0.0, 4, None, (128, 150)),
+    ("ragged_groups_G5", 45, 37, 53, 0.0, 8, None, None),
+    ("ragged_groups_G10", 7, 37, 61, 0.1, 4, None, None),
+    ("short_R8", 512, 40, 40, 0.0, 8, None, None),
+    ("banded_R4_n_heavy", 64, 200, 150, 0.4, 4, None, None),
+    ("unpacked_short", 256, 40, 40, 0.0, None, False, None),
+    ("unpacked_banded", 4, 1000, 1000, 0.0, None, False, None),
+    ("unpacked_best_on_band_row", 3, 600, 300, 0.0, 4, False, (256, 300)),
+    ("R8_banded_best_on_band_row", 4, 1100, 300, 0.0, 8, None, (512, 280)),
+    ("R8_one_band_ragged", 37, 250, 70, 0.2, 8, None, None),
+]
+# each R at the shapes callers send, against the plan's pick (device time)
+SW_SWEEP = [(B, La, Lb) for _, B, La, Lb, _ in SW_SHAPES] + [(256, 40, 40)]
 
 
 def card_line() -> str:
@@ -60,9 +95,11 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def sw_inputs(B, La, Lb, n_frac, seed):
+def sw_inputs(B, La, Lb, n_frac, seed, best_at=None):
     """Random codes with a planted shared core per row, N blocks and (for
-    N-heavy inputs) all-N rows; uint8 on the card."""
+    N-heavy inputs) all-N rows; uint8 on the card.  `best_at` = (row,
+    column) plants in every row a core that ends at that DP cell, with N
+    after it so that the best cell stays there."""
     rng = np.random.default_rng(seed)
     a = rng.integers(0, 4, (B, La)).astype(np.uint8)
     b = rng.integers(0, 4, (B, Lb)).astype(np.uint8)
@@ -73,6 +110,13 @@ def sw_inputs(B, La, Lb, n_frac, seed):
         qb = int(rng.integers(0, Lb - core + 1))
         a[r, qa : qa + core] = c
         b[r, qb : qb + core] = c
+    if best_at:
+        i, j = best_at
+        n = min(i, j, 150)
+        for r in range(B):
+            a[r, i - n : i] = b[r, j - n : j] = rng.integers(0, 4, n)
+        a[:, i : i + 8] = 4
+        b[:, j : j + 8] = 4
     if n_frac:
         a[rng.random((B, La)) < n_frac] = 4
         b[rng.random((B, Lb)) < n_frac / 2] = 4
@@ -80,6 +124,93 @@ def sw_inputs(B, La, Lb, n_frac, seed):
         b[3::11] = 4
     dev = torch.device("cuda")
     return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def sw(a, b, R=None, packed=None):
+    return terminal._sw_cuda(a, b, match=2, mismatch=-3, gap=4,
+                             invalid_code=4, R=R, packed=packed)
+
+
+def _cuobjdump() -> str:
+    return shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+
+def sass_step_counts(lib_path: str) -> dict:
+    """{kernel function: static SASS instructions of its step loop}, read
+    with cuobjdump: the backward branch whose body holds the most
+    lane shuffles other than SHFL.DOWN (the step's shuffles; the final
+    reduction's are unrolled), counted from the loop head to it."""
+    txt = subprocess.run([_cuobjdump(), "-sass", lib_path],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", txt)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        ins, at = [], {}   # instructions; address or label -> index
+        for line in block.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                at[m.group(1)] = len(ins)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                at[int(m.group(1), 16)] = len(ins)
+                ins.append(m.group(2))
+        best = (0, 0)
+        for k, t in enumerate(ins):
+            m = re.search(r"\bBRA\b[^;]*?(?:0x([0-9a-f]+)|(\.L_x_\d+))", t)
+            if not m:
+                continue
+            head = at.get(int(m.group(1), 16) if m.group(1) else m.group(2))
+            if head is not None and head <= k:
+                body = ins[head : k + 1]
+                best = max(best, (sum("SHFL." in x and "DOWN" not in x
+                                      for x in body), len(body)))
+        out[name] = best[1] if best[0] else None
+    return out
+
+
+def kernel_variant(name: str):
+    """(R, packed, banded) of a sw_kernel instantiation's mangled name."""
+    m = re.search(r"sw_kernelILi(\d+)E([jy])Lb([01])EE", name)
+    if not m:
+        raise ValueError(f"not a sw_kernel instantiation: {name}")
+    return int(m.group(1)), m.group(2) == "j", m.group(3) == "1"
+
+
+def ptxas_report(log: str) -> dict:
+    """{function: (registers, spill store bytes, spill load bytes)}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in out:
+            out[fn][0] = int(m.group(1))
+    return out
+
+
+def sass_per_cell(lib_path: str, log: str) -> dict:
+    """{(R, packed, banded): step-loop SASS instructions per cell},
+    printing the registers, spills and step-loop counts of every
+    instantiation."""
+    regs = ptxas_report(log)
+    per = {}
+    for fn, n in sorted(sass_step_counts(lib_path).items()):
+        key = kernel_variant(fn)
+        R, packed, banded = key
+        r, ss, sl = regs.get(fn, (None, None, None))
+        per[key] = n / R if n else None
+        print(f"build: sw R={R} {'packed' if packed else 'unpacked'} "
+              f"{'banded' if banded else 'one band'}: {r} registers, spills "
+              f"{ss}/{sl} B, step loop {n} SASS instructions = {per[key]} "
+              "per cell")
+    return per
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -95,20 +226,21 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def sw_bound_ms(B, La, Lb):
+def sw_bound_ms(B, La, Lb, ops_per_cell, ops_per_s):
     """Least time for the work: each input byte read once and 7 int32
-    outputs written once, or SW_OPS_PER_CELL int32 ops per DP cell."""
+    outputs written once, or ops_per_cell ops per DP cell at ops_per_s."""
     t_bytes = (B * (La + Lb) + 7 * 4 * B) / PEAK_BYTES_S
-    t_ops = SW_OPS_PER_CELL * B * La * Lb / PEAK_OPS_S
+    t_ops = ops_per_cell * B * La * Lb / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
 
-def check_sw(label, a, b, reps):
+def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None):
     """Kernel vs plain on the same inputs: bit-exact on all 7 outputs."""
     B, La = a.shape
     Lb = b.shape[1]
-    got = terminal._sw_cuda(a, b, match=2, mismatch=-3, gap=4, invalid_code=4)
+    plan = terminal.sw_plan(La, Lb, R=R, packed=packed)
+    got = sw(a, b, R, packed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = terminal.batched_local_align(a, b)
@@ -119,17 +251,55 @@ def check_sw(label, a, b, reps):
     if err != 0:
         bad = [f for f, g, r in zip(terminal.LocalAlign._fields, got, ref)
                if not torch.equal(g, r)]
-        raise AssertionError(f"sw kernel != plain at {label}: fields {bad}")
-    ms = cuda_ms(lambda: terminal._sw_cuda(a, b, match=2, mismatch=-3,
-                                           gap=4, invalid_code=4), reps)
-    bound, by = sw_bound_ms(B, La, Lb)
-    row = dict(shape=label, B=B, La=La, Lb=Lb, max_abs_err=err, ms=ms,
+        raise AssertionError(f"sw kernel != plain at {label} ({plan}): "
+                             f"fields {bad}")
+    if best_at:
+        on = int(((ref.qe == best_at[0]) & (ref.se == best_at[1])).sum())
+        assert on >= 1, f"{label}: no best cell at {best_at}"
+        label = f"{label} ({on}/{B} bests at {best_at})"
+    dev_ms, ms = sw_device_ms(a, b, reps, R, packed)
+    kernel_ms = dev_ms or ms
+    bound, by = sw_bound_ms(B, La, Lb, SW_OPS_PER_CELL, PEAK_INT32_S)
+    # diagnostic, not a bound of the function: the kernel's own step-loop
+    # instructions at the card's issue rate
+    per_cell = sass.get((plan.R, plan.packed, plan.nb > 1))
+    issue = (per_cell * B * La * Lb / PEAK_INSTR_S * 1e3 if per_cell
+             else None)
+    row = dict(shape=label, B=B, La=La, Lb=Lb, plan=plan._asdict(),
+               max_abs_err=err, ms=kernel_ms, device_ms=dev_ms, call_ms=ms,
                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-               cells_per_s=B * La * Lb / (ms * 1e-3))
-    print(f"sw {label}: B={B} {La}x{Lb} kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.1f} ms  bound {bound:.5f} ms ({by})  "
+               sass_per_cell=per_cell, sass_instr_ms=issue,
+               cells_per_s=B * La * Lb / (kernel_ms * 1e-3))
+    print(f"sw {label}: B={B} {La}x{Lb} R={plan.R} G={plan.G} "
+          f"bands={plan.nb} {'packed' if plan.packed else 'unpacked'}: "
+          f"kernel {kernel_ms:.4f} ms ({'device' if dev_ms else 'events'}"
+          f"; {ms:.4f} ms a call by events)  plain {plain_ms:.1f} ms  "
+          f"bound {bound:.5f} ms ({by}; {kernel_ms / bound:.1f}x)  "
+          f"step-loop SASS at the instruction rate {issue} ms  "
           f"{row['cells_per_s'] / 1e9:.2f} Gcell/s  exact")
     return row
+
+
+def sw_device_ms(a, b, n, R=None, packed=None):
+    """Per-launch device time of the SW kernel from torch.profiler kernel
+    durations (None if the profiler saw no kernel), and the per-call
+    CUDA-event time of the same loop (which includes the host enqueue
+    when launches are short)."""
+    sw(a, b, R, packed)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(n):
+            sw(a, b, R, packed)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "sw_kernel" in e.key]
+    dev_us = sum(e.self_device_time_total for e in ev)
+    count = sum(e.count for e in ev)
+    return (dev_us / count / 1e3 if count else None), cuda_ms(
+        lambda: sw(a, b, R, packed), n)
 
 
 def build_bench_genome(length: int):
@@ -262,27 +432,62 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s total; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
-    for line in kernels.BUILD_LOG.get("sw", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: sw ptxas: {line.strip()}")
     report["build_s"] = build_s
     assert native_rt.available(), "native chain library did not load"
+    sass = sass_per_cell(kernels._lib_path("sw"), kernels.BUILD_LOG["sw"])
+    report["sass_per_cell"] = {
+        f"R{r}_{'packed' if p else 'unpacked'}_{'banded' if bd else 'one'}": n
+        for (r, p, bd), n in sass.items()}
 
-    # ---- SW kernel vs plain, listed shapes
+    # ---- SW kernel vs plain, listed shapes, borders and forced variants
     rows = []
     for i, (label, B, La, Lb, nf) in enumerate(SW_SHAPES):
         a, b = sw_inputs(B, La, Lb, nf, seed=100 + i)
-        reps = 20 if La * Lb * B < 1 << 28 else 3
-        rows.append(check_sw(label, a, b, reps))
-    # zero-alignment rows: every code N -> qs = qe = ss = se = 1, score 0
+        reps = 20 if La * Lb * B < 1 << 28 else 5
+        rows.append(check_sw(label, a, b, reps, sass))
+    borders = []
+    for i, (label, B, La, Lb, nf, R, packed, at) in enumerate(SW_BORDERS):
+        a, b = sw_inputs(B, La, Lb, nf, seed=200 + i, best_at=at)
+        borders.append(check_sw(label, a, b, 10, sass, R, packed, at))
+    # zero-alignment rows: every code N -> qs = qe = ss = se = 1, score 0;
+    # and empty widths -> all zeros, in each variant
     a = torch.full((4, 40), 4, dtype=torch.uint8, device="cuda")
-    z = terminal._sw_cuda(a, a.clone(), match=2, mismatch=-3, gap=4,
-                          invalid_code=4)
-    zero = [int(f[0]) for f in z]
-    assert zero == [0, 1, 1, 1, 1, 0, 0], zero
+    for R, packed in ((None, None), (8, None), (None, False)):
+        zero = [int(f[0]) for f in sw(a, a.clone(), R, packed)]
+        assert zero == [0, 1, 1, 1, 1, 0, 0], zero
+    e = torch.empty((3, 0), dtype=torch.uint8, device="cuda")
+    for x, y in ((e, a[:3]), (a[:3], e)):
+        ref = terminal.batched_local_align(x, y)
+        assert all(torch.equal(g, r) for g, r in zip(sw(x, y), ref)), \
+            f"empty width {tuple(x.shape)} x {tuple(y.shape)}"
+    variants = {(r["plan"]["nb"] > 1, r["plan"]["packed"]) for r in
+                rows + borders}
+    assert variants == {(False, True), (True, True), (False, False),
+                        (True, False)}, variants
     report["sw_shapes"] = rows
+    report["sw_borders"] = borders
     print("kernels: sw (cuda, hite_tpu_torch/csrc/sw.cu) built, launched, "
-          f"bit-exact at {len(rows)} shapes")
+          f"bit-exact at {len(rows)} shapes and {len(borders)} border "
+          "shapes in every variant (lane groups / bands x packed / "
+          "unpacked)")
+
+    # ---- rows a lane: each R at the callers' shapes, against the plan's
+    # pick, by device time (events where the profiler saw no kernel)
+    sweep = {}
+    for i, (B, La, Lb) in enumerate(SW_SWEEP):
+        a, b = sw_inputs(B, La, Lb, 0.0, seed=300 + i)
+        reps = 10 if La * Lb * B < 1 << 28 else 3
+        t = {}
+        for R in terminal.SW_ROWS:
+            dev_ms, ms = sw_device_ms(a, b, reps, R)
+            t[R] = dev_ms or ms
+        pick = terminal.sw_plan(La, Lb).R
+        sweep[f"{B}x{La}x{Lb}"] = dict(ms=t, plan_R=pick)
+        print(f"sw sweep B={B} {La}x{Lb}: " + "  ".join(
+            f"R={R} {v:.4f} ms" for R, v in t.items())
+            + f"  (plan picks R={pick}, {t[pick] / min(t.values()):.3f} x "
+            "the fastest)")
+    report["sw_sweep"] = sweep
 
     # ---- the TIR path at 8 Mbp on cuda
     length = 8_000_000
@@ -333,7 +538,8 @@ def main() -> int:
     main_rows = []
     for (B, La, Lb), n in sorted(shapes["sw"].items(), key=lambda x: -x[1]):
         a, b = sw_inputs(B, La, Lb, 0.0, seed=B + La)
-        main_rows.append(dict(check_sw(f"main_B{B}", a, b, 50), launches=n))
+        main_rows.append(dict(check_sw(f"main_B{B}", a, b, 50, sass),
+                              launches=n))
     report["sw_main_shapes"] = main_rows
 
     # ---- the same path again, warm, under the profiler: device busy share
@@ -380,17 +586,20 @@ def main() -> int:
     print(f"small path: cuda == cpu; {len(c_gpu)} candidates, accepted "
           f"{r_gpu.accepted.intervals.tolist()} copies {r_gpu.copy_counts}")
 
-    # ---- kernel line: main-path-weighted time of the kernel
+    # ---- kernel line: main-path-weighted time of the kernel (device time
+    # from the profiler where it saw the kernel, else the event time) and
+    # of the bound (the recurrence's int32 operations at the int32 rate)
     tot = sum(r["launches"] for r in main_rows)
     wavg = lambda key: sum(r[key] * r["launches"] for r in main_rows) / tot
-    bound_by = max(main_rows, key=lambda r: r["launches"])["bound_by"]
+    top = max(main_rows, key=lambda r: r["launches"])
     kline = {"kernels": [{
         "name": "sw", "route": "cuda", "source": "hite_tpu_torch/csrc/sw.cu",
         "replaces": "hite_tpu/ops/terminal_pallas.py:47",
         "launches": launches["sw"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows + main_rows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in rows + borders + main_rows),
         "ms": wavg("ms"), "plain_ms": wavg("plain_ms"),
-        "bound_ms": wavg("bound_ms"), "bound_by": bound_by,
+        "bound_ms": wavg("bound_ms"), "bound_by": top["bound_by"],
         "library_ms": None}]}
     report["kernel_line"] = kline
     os.makedirs("smoke_out", exist_ok=True)

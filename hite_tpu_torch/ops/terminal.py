@@ -15,7 +15,8 @@ tensors, the oracle), a CUDA tensor to the hand-written kernel
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -178,44 +179,107 @@ def _check_inputs(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("a and b must be contiguous")
 
 
-_SW_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p]
+class SwPlan(NamedTuple):
+    """How `csrc/sw.cu` covers a [B, La] x [B, Lb] launch."""
+
+    R: int        # DP rows a lane
+    G: int        # lanes a group (one band of one alignment)
+    nb: int       # bands an alignment (nb > 1: G == 32, one warp a band)
+    packed: bool  # (si, sj) and (m, d) as 16-bit halves of one word
 
 
+SW_ROWS = (4, 8)   # the R the kernel is instantiated for
+
+
+def sw_packs(La: int, Lb: int) -> bool:
+    """The 16-bit packed fields hold every start, row, column and count:
+    si, i and the matches and diagonal moves are at most La, sj and j at
+    most Lb (the kernel carries diagonal moves, not the length)."""
+    return La < 65536 and Lb < 65536
+
+
+def sw_groups(R: int, La: int) -> Tuple[int, int]:
+    """(G, nb): lanes a group and bands an alignment at R rows a lane."""
+    lanes = -(-max(La, 1) // R)
+    if lanes <= 32:
+        return lanes, 1
+    return 32, -(-La // (32 * R))
+
+
+def sw_rows(La: int) -> int:
+    """R = 4 while an alignment fits one warp at 4 rows a lane (lane
+    groups: fewer rows a lane step sooner; the TIR gate's 40 x 40 at
+    batches of 16 to 4096), else R = 8, the cheaper cell (the banded
+    widths of LTR, to 8192, and annotation, to 4096).  Each is the faster
+    R at those shapes on the H100 (PERF.md)."""
+    return 4 if La <= 32 * 4 else 8
+
+
+@functools.lru_cache(maxsize=1024)
+def sw_plan(La: int, Lb: int, *, R: Optional[int] = None,
+            packed: Optional[bool] = None) -> SwPlan:
+    """The launch plan of an [*, La] x [*, Lb] batch: R by `sw_rows` unless given, and the packed
+    variant unless a width overflows its 16-bit fields (then the unpacked
+    one, never the plain version)."""
+    fits = sw_packs(La, Lb)
+    if packed is None:
+        packed = fits
+    elif packed and not fits:
+        raise ValueError(f"La={La}, Lb={Lb} overflow the packed fields")
+    if R is None:
+        R = sw_rows(La)
+    elif R not in SW_ROWS:
+        raise ValueError(f"R must be one of {SW_ROWS}, got {R}")
+    return SwPlan(R, *sw_groups(R, La), packed)
+
+
+@functools.lru_cache(maxsize=None)
 def _sw_lib() -> ctypes.CDLL:
+    """The loaded `csrc/sw.cu` library with its argtypes, resolved once."""
     lib = kernels.load("sw")
-    if lib.sw_launch.argtypes is None:
-        lib.sw_launch.argtypes = _SW_ARGTYPES
-        lib.sw_launch.restype = ctypes.c_int
-        lib.sw_scratch_ints.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.sw_scratch_ints.restype = ctypes.c_longlong
-        lib.sw_error_string.argtypes = [ctypes.c_int]
-        lib.sw_error_string.restype = ctypes.c_char_p
+    lib.sw_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 11
+                              + [ctypes.c_void_p] * 4)
+    lib.sw_launch.restype = ctypes.c_int
+    lib.sw_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.sw_scratch_bytes.restype = ctypes.c_longlong
+    lib.sw_sync_ints.argtypes = [ctypes.c_int] * 2
+    lib.sw_sync_ints.restype = ctypes.c_longlong
+    lib.sw_error_string.argtypes = [ctypes.c_int]
+    lib.sw_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _sw_cuda(a: torch.Tensor, b: torch.Tensor, *, match: int,
-             mismatch: int, gap: int, invalid_code: int) -> LocalAlign:
-    """Launch `csrc/sw.cu` on the current stream (no synchronise)."""
+             mismatch: int, gap: int, invalid_code: int,
+             R: Optional[int] = None, packed: Optional[bool] = None
+             ) -> LocalAlign:
+    """Launch `csrc/sw.cu` on the current stream (no synchronise).  `R`
+    and `packed` force a variant (chip_smoke.py holds each against the
+    plain version); by default `sw_plan` chooses."""
     B, La = a.shape
     Lb = b.shape[1]
-    out = torch.empty((7, B), dtype=torch.int32, device=a.device)
+    dev = a.device
+    out = torch.empty((7, B), dtype=torch.int32, device=dev)
     if B == 0:
         return LocalAlign(*out.unbind(0))
     lib = _sw_lib()
-    n_scratch = int(lib.sw_scratch_ints(La, Lb))
-    scratch = (torch.empty(B * n_scratch, dtype=torch.int32, device=a.device)
-               if n_scratch else None)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        rc = lib.sw_launch(a.data_ptr(), b.data_ptr(), B, La, Lb, match,
-                           mismatch, gap, invalid_code, out.data_ptr(),
-                           None if scratch is None else scratch.data_ptr(),
-                           stream)
+    plan = sw_plan(La, Lb, R=R, packed=packed)
+    sync = scratch = None
+    if plan.nb > 1:
+        sync = torch.zeros(lib.sw_sync_ints(B, plan.nb), dtype=torch.int32,
+                           device=dev)
+        scratch = torch.empty(
+            lib.sw_scratch_bytes(B, Lb, plan.nb, plan.packed),
+            dtype=torch.uint8, device=dev)
+    args = (a.data_ptr(), b.data_ptr(), B, La, Lb, match, mismatch, gap,
+            invalid_code, plan.R, plan.G, plan.nb, int(plan.packed),
+            out.data_ptr(), None if sync is None else sync.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = lib.sw_launch(*args)
     if rc != 0:
-        raise RuntimeError("sw kernel launch failed: "
+        raise RuntimeError(f"sw kernel launch failed ({plan}): "
                            + lib.sw_error_string(rc).decode())
     kernels.count_launch("sw", (B, La, Lb))
     return LocalAlign(*out.unbind(0))

@@ -15,8 +15,8 @@ from hite_tpu.ops.terminal import batched_local_align as jax_sw
 from hite_tpu.ops.terminal import find_terminal_repeat as jax_ftr
 from hite_tpu.ops.terminal_pallas import batched_local_align_pallas
 from hite_tpu_torch.ops.terminal import (
-    LocalAlign, batched_local_align, batched_local_align_auto,
-    find_terminal_repeat,
+    SW_ROWS, LocalAlign, batched_local_align, batched_local_align_auto,
+    find_terminal_repeat, sw_plan,
 )
 
 torch.set_num_threads(2)
@@ -130,69 +130,308 @@ def test_find_terminal_repeat(inverted):
     assert np.asarray(ref.found).any()
 
 
-def _kernel_schedule(a, b, R, max_t, match=2, mismatch=-3, gap=4, inv=4):
-    """Python model of csrc/sw.cu's schedule for one alignment: T threads
-    in lockstep, thread t on column s - t at step s over R-row strips, the
-    cell above a strip taken from thread t-1's previous step, bands of
-    T*R rows handed over through a scratch row, one best per thread
-    reduced by (score desc, row asc, column asc)."""
-    La, Lb = len(a), len(b)
-    T = max(1, min(max_t, -(-La // R)))
-    best = (-(10**9), 0, 0, 0, 0, 0, 0)
-    scratch = {}
-    for r0 in range(0, La, T * R):
-        tops = [r0 + t * R + 1 for t in range(T)]
-        nrows = [max(0, min(R, La - top + 1)) for top in tops]
-        cols = [[(0, top + q, 0, 0, 0) for q in range(R)] for top in tops]
-        above_prev = [(0, top - 1, 0, 0, 0) for top in tops]
-        out = [None] * T
-        for s in range(Lb + T):
-            prev_out = list(out)
-            for t in range(T):
-                j = s - t
-                if not (1 <= j <= Lb and nrows[t]):
+NEG = -(10**9)
+
+
+def _better(x, y):
+    """(score desc, then the packed (row, column) key asc)."""
+    return x[0] > y[0] or (x[0] == y[0] and x[1] < y[1])
+
+
+def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
+                  seed=0, match=2, mismatch=-3, gap=4, inv=4):
+    """Python model of csrc/sw.cu over a batch A[B, La], Bm[B, Lb].
+
+    Warps of `lanes` lanes in lockstep; groups of G lanes, R rows a lane,
+    one band (G * R >= La: lanes // G alignments a warp) or bands of
+    lanes * R rows (one warp each) that hand their last row over in
+    chunks of `chunk` columns behind a progress count, fetched `ahead`
+    steps early.  Cells carry (h, st, ml) with (si, sj) and (m, d) packed
+    as S-bit halves (d: diagonal moves; the length follows at the end);
+    the lane above comes by the kernel's rotating shuffle.  Warps start in ticket order (band-major) and then advance
+    in an order drawn from `seed`, each at its own random speed, so a
+    band often runs far ahead of the band above it and has to wait."""
+    B, La = A.shape
+    Lb = Bm.shape[1]
+    S = 16 if packed else 32
+    LOW = (1 << S) - 1
+    n_lanes = -(-max(La, 1) // R)
+    G, nb = (n_lanes, 1) if n_lanes <= lanes else (lanes, -(-La // (lanes * R)))
+    gpw = lanes // G
+    prog, ho, bests = {}, {}, {}
+
+    def warp(units):
+        L = []
+        for lane in range(lanes):
+            grp, g = divmod(lane, G)
+            live = grp < min(gpw, len(units))
+            aln, band = units[grp] if live else (0, 0)
+            top = band * G * R + g * R + 1
+            nrows = max(0, min(R, La - top + 1)) if live else 0
+            aq = [int(A[aln, top - 1 + q]) if q < nrows else inv
+                  for q in range(R)]
+            L.append(dict(
+                grp=grp, g=g, aln=aln, top=top, nrows=nrows,
+                aq=[x if x < inv else 0x100 for x in aq],
+                col=[(0, (top + q) << S, 0) for q in range(R)],
+                above_prev=(0, (top - 1) << S, 0), out=(0, 0, 0),
+                best=(NEG, 0, 0, 0),
+                src=lane - 1 if g > 0 else (lane + G - 1) % lanes))
+        aln0, band0 = units[0]
+        consume = nb > 1 and band0 > 0
+        produce = nb > 1 and band0 < nb - 1
+        stage, pre = [None, None], [None]
+
+        def fetch(c):
+            need = min((c + 1) * chunk, Lb)
+            while prog.get((aln0, band0 - 1), 0) < need:
+                yield "wait"
+            pre[0] = [ho[(aln0, band0 - 1, j)]
+                      for j in range(c * chunk + 1, min((c + 1) * chunk, Lb) + 1)]
+
+        if consume:
+            yield from fetch(0)
+        for s in range(Lb + G - 1):
+            if consume:
+                if s < Lb and s % chunk == 0:
+                    stage[(s // chunk) & 1] = pre[0]
+                if s + ahead < Lb and (s + ahead) % chunk == 0:
+                    yield from fetch((s + ahead) // chunk)
+            sends = []
+            for st in L:
+                send = st["out"]
+                if st["g"] == G - 1:
+                    jn = s + 1
+                    if not consume:
+                        send = (0, jn, 0)
+                    elif jn <= Lb:
+                        send = stage[(s // chunk) & 1][s % chunk]
+                sends.append(send)
+            for st in L:
+                above = sends[st["src"]]
+                j = s - st["g"] + 1
+                if not (1 <= j <= Lb and st["nrows"]):
                     continue
-                above = (prev_out[t - 1] if t else (0, 0, j, 0, 0) if r0 == 0
-                         else scratch[j])
-                diag, up = above_prev[t], above
-                for q in range(nrows[t]):
-                    i, left = tops[t] + q, cols[t][q]
-                    im = int(b[j - 1] < inv and a[i - 1] == b[j - 1])
+                y = int(Bm[st["aln"], j - 1])
+                bc = y if y < inv else 0x200
+                diag, up = st["above_prev"], above
+                for q in range(R):   # all R rows; rows past La are junk
+                    left = st["col"][q]
+                    im = int(st["aq"][q] == bc)
                     cd = diag[0] + (match if im else mismatch)
-                    h = max(cd, 0, up[0] - gap, left[0] - gap)
+                    cu = up[0] - gap
+                    h = max(max(up[0], left[0]) - gap, cd, 0)
+                    key = ((st["top"] + q) << S) | j
                     if h == 0:
-                        c = (0, i, j, 0, 0)
+                        c = (0, key, 0)
                     elif cd == h:
-                        c = (h, diag[1], diag[2], diag[3] + im, diag[4] + 1)
-                    elif up[0] - gap == h:
-                        c = (h, up[1], up[2], up[3], up[4] + 1)
+                        c = (h, diag[1], diag[2] + ((im << S) | 1))
+                    elif cu == h:
+                        c = (h, up[1], up[2])
                     else:
-                        c = (h, left[1], left[2], left[3], left[4] + 1)
-                    if (h, -i, -j) > (best[0], -best[1], -best[2]):
-                        best = (h, i, j) + c[1:]
-                    diag, up, cols[t][q] = left, c, c
-                above_prev[t], out[t] = above, up
-                if t == T - 1 and r0 + T * R < La:
-                    scratch[j] = up
-    h, i, j, si, sj, m, l = best
-    return [max(h, 0), si, i, sj, j, m, l]
+                        c = (h, left[1], left[2])
+                    assert c[2] & LOW < LOW and c[1] & LOW <= Lb
+                    if q < st["nrows"] and _better((h, key), st["best"]):
+                        st["best"] = (h, key, c[1], c[2])
+                    diag, up = left, c
+                    st["col"][q] = c
+                st["above_prev"], st["out"] = above, up
+                if produce and st["g"] == G - 1:
+                    ho[(aln0, band0, j)] = up
+                    if j % chunk == 0 or j == Lb:
+                        prog[(aln0, band0)] = j
+            yield "step"
+        for grp, unit in enumerate(units[:gpw]):
+            best = (NEG, 0, 0, 0)
+            for st in L:
+                if st["grp"] == grp and _better(st["best"], best):
+                    best = st["best"]
+            bests[unit] = best
+
+    tickets = [(aln, band) for band in range(nb) for aln in range(B)]
+    per = gpw if nb == 1 else 1
+    warps = [tickets[i : i + per] for i in range(0, len(tickets), per)]
+    rng = np.random.default_rng(seed)
+    running, speed, started, idle = [], [], 0, 0
+    while started < len(warps) or running:
+        if started < len(warps) and (not running or rng.random() < 0.3):
+            running.append(warp(warps[started]))
+            speed.append(rng.random() ** 3 + 1e-3)
+            started += 1
+            continue
+        p = np.asarray(speed) / sum(speed)
+        k = int(rng.choice(len(running), p=p))
+        try:
+            idle = idle + 1 if next(running[k]) == "wait" else 0
+        except StopIteration:
+            running.pop(k)
+            speed.pop(k)
+            idle = 0
+        assert idle < 200000, "deadlock: every running warp waits"
+    out = np.zeros((7, B), np.int64)
+    for aln in range(B):
+        best = (NEG, 0, 0, 0)
+        for band in range(nb):
+            if _better(bests[(aln, band)], best):
+                best = bests[(aln, band)]
+        h, key, st, ml = best
+        i, j, si, sj = key >> S, key & LOW, st >> S, st & LOW
+        out[:, aln] = [max(h, 0), si, i, sj, j, ml >> S,
+                       (i - si) + (j - sj) - (ml & LOW)]
+    return out
 
 
-@pytest.mark.parametrize("R,max_t", [(8, 512), (2, 3), (1, 4), (3, 2)])
-def test_kernel_schedule_matches_plain(R, max_t):
-    """The CUDA kernel's wavefront/band schedule (modelled in Python, with
-    small strips and blocks so several bands run) computes what the plain
-    version computes."""
-    rng = np.random.default_rng(R * 10 + max_t)
-    for _ in range(12):
-        La, Lb = (int(x) for x in rng.integers(1, 30, 2))
-        a = rng.integers(0, 5, La).astype(np.uint8)
-        b = rng.integers(0, 5, Lb).astype(np.uint8)
-        n = min(La, Lb)
-        b[: n // 2] = a[La - n // 2 :]
-        ref = batched_local_align(torch.from_numpy(a[None]),
-                                  torch.from_numpy(b[None]))
-        assert _kernel_schedule(a, b, R, max_t) == [int(f[0]) for f in ref]
+def _model_inputs(rng, B, La, Lb):
+    a = rng.integers(0, 5, (B, La)).astype(np.uint8)
+    b = rng.integers(0, 5, (B, Lb)).astype(np.uint8)
+    for r in range(B):
+        n = int(rng.integers(0, min(La, Lb) + 1))
+        if n and rng.random() < 0.7:
+            qa = int(rng.integers(0, La - n + 1))
+            qb = int(rng.integers(0, Lb - n + 1))
+            b[r, qb : qb + n] = a[r, qa : qa + n]
+            if n > 8 and rng.random() < 0.6:
+                # an indel in the copy: the best path takes an up or left
+                # move, and ties between them arise
+                k = qb + int(rng.integers(3, n - 3))
+                row = b[r, qb : qb + n].copy()
+                b[r, qb : qb + n] = (np.delete(row, k - qb).tolist()
+                                     + [4] if rng.random() < 0.5 else
+                                     np.insert(row, k - qb, 2)[:n])
+    return a, b
+
+
+def _check_model(a, b, **kw):
+    ref = batched_local_align(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(_kernel_model(a, b, **kw),
+                                  np.stack([f.numpy() for f in ref]))
+
+
+# (R, lanes a warp, chunk columns, fetch-ahead steps, packed fields); the
+# first four keep the ids of the earlier one-block-per-alignment model
+_SCHEDULES = [(8, 512, 32, 8, True), (2, 3, 4, 1, True), (1, 4, 3, 2, False),
+              (3, 2, 2, 1, True), (1, 32, 32, 8, True), (2, 4, 8, 3, True),
+              (4, 2, 5, 4, False), (1, 3, 1, 1, True), (2, 8, 32, 8, False),
+              (4, 32, 32, 8, True), (8, 32, 32, 8, False), (16, 2, 4, 2, True),
+              (16, 32, 32, 4, False)]
+
+
+@pytest.mark.parametrize(
+    "R,lanes,chunk,ahead,packed", _SCHEDULES,
+    ids=[f"{r}-{n}" if i < 4 else f"R{r}-lanes{n}-chunk{c}-ahead{h}-"
+         f"{'packed' if p else 'wide'}"
+         for i, (r, n, c, h, p) in enumerate(_SCHEDULES)])
+def test_kernel_schedule_matches_plain(R, lanes, chunk, ahead, packed):
+    """The CUDA kernel's schedule (modelled in Python: lane groups, bands
+    handed over in chunks behind progress counts in a random warp order,
+    packed fields) computes what the plain version computes.  Small warps
+    and chunks make several bands and chunks run at small sizes."""
+    rng = np.random.default_rng(R * 1000 + lanes * 10 + chunk)
+    for t in range(6):
+        B = int(rng.integers(1, 6))
+        La, Lb = (int(x) for x in rng.integers(0 if t == 5 else 1, 34, 2))
+        a, b = _model_inputs(rng, B, La, Lb)
+        _check_model(a, b, R=R, lanes=lanes, chunk=chunk, ahead=ahead,
+                     packed=packed, seed=int(rng.integers(1 << 30)))
+
+
+@pytest.mark.parametrize("R,lanes,chunk", [(1, 4, 3), (2, 4, 5), (2, 3, 2)])
+@pytest.mark.parametrize("where", ["band_last_row", "last_column", "both"])
+def test_kernel_model_best_on_band_border(R, lanes, chunk, where):
+    """A planted best cell on a band's last row, on the last column, or
+    on both, across several orders of the warps."""
+    H = lanes * R
+    La, Lb = 3 * H, 2 * chunk + 3
+    rng = np.random.default_rng(H * 7 + chunk)
+    a = rng.integers(0, 4, (3, La)).astype(np.uint8)
+    b = rng.integers(0, 4, (3, Lb)).astype(np.uint8)
+    a[0] = b[0] = 4       # row 0: only the planted core can score
+    n = min(H, Lb - 2)
+    end_a = H if where != "last_column" else La - 2
+    end_b = Lb if where != "band_last_row" else Lb - 2
+    for r in range(3):
+        core = rng.integers(0, 4, n).astype(np.uint8)
+        a[r, end_a - n : end_a] = b[r, end_b - n : end_b] = core
+    ref = batched_local_align(torch.from_numpy(a), torch.from_numpy(b))
+    assert int(ref.qe[0]) == end_a and int(ref.se[0]) == end_b
+    for seed in range(3):
+        _check_model(a, b, R=R, lanes=lanes, chunk=chunk,
+                     ahead=min(chunk - 1, 2), seed=seed)
+
+
+def test_kernel_model_tie_across_bands():
+    """Equal best scores in the first and last band (and in two columns
+    of one band): the first row, then the first column, wins."""
+    La, Lb = 40, 20
+    a = np.full((2, La), 4, np.uint8)
+    b = np.full((2, Lb), 4, np.uint8)
+    core = np.array([0, 1, 2, 3, 3, 1], np.uint8)
+    a[0, 2:8] = a[0, 30:36] = core
+    b[0, 10:16] = core
+    a[1, 20:26] = core
+    b[1, 1:7] = b[1, 12:18] = core
+    ref = batched_local_align(torch.from_numpy(a), torch.from_numpy(b))
+    assert ref.qe.tolist() == [8, 26] and ref.se.tolist() == [16, 7]
+    for seed in range(3):
+        _check_model(a, b, R=2, lanes=4, chunk=4, ahead=2, seed=seed)
+
+
+def test_kernel_model_partly_filled_lane_groups():
+    """Short alignments: several per warp, a ragged last warp, a group
+    width that does not divide the warp, and idle lanes past the last
+    group (G = 5 lanes of 8 rows: 6 alignments a warp, 2 lanes idle)."""
+    rng = np.random.default_rng(77)
+    a, b = _model_inputs(rng, 13, 37, 29)
+    a[4] = 4
+    _check_model(a, b, R=8, seed=3)
+    _check_model(a, b, R=4, seed=4)
+
+
+@pytest.mark.parametrize("La,Lb,packed", [
+    (65535, 65535, True), (65536, 1, False), (1, 65536, False),
+    (40000, 40000, True), (8192, 8192, True), (40, 40, True)])
+def test_sw_plan_packs_only_below_the_limit(La, Lb, packed):
+    """The wrapper's choice: packed 16-bit fields while La and Lb < 65536,
+    the unpacked instantiation at and past it (never the plain version),
+    and a forced packed launch past the limit raises."""
+    plan = sw_plan(La, Lb)
+    assert plan.packed is packed
+    assert plan.G * plan.R * plan.nb >= La
+    if not packed:
+        with pytest.raises(ValueError):
+            sw_plan(La, Lb, packed=True)
+
+
+@pytest.mark.parametrize("B,La,Lb", [
+    (4096, 40, 40), (16, 40, 40), (256, 40, 40), (64, 1024, 1024),
+    (32, 4096, 4096), (8, 8192, 8192), (2, 16384, 16384), (1001, 37, 53),
+    (256, 300, 300), (1, 0, 5), (3, 7, 0)])
+def test_sw_plan_covers_and_fills(B, La, Lb):
+    """Every plan covers its rows the way csrc/sw.cu checks; short
+    alignments share warps, long ones are banded into about a warp an SM
+    or more (2 x 16384 rows: 128 bands of 256 rows, which the H100 sweep
+    found faster than 256 bands of 128)."""
+    p = sw_plan(La, Lb)
+    assert p.R in SW_ROWS and 1 <= p.G <= 32
+    if p.nb == 1:
+        assert p.G * p.R >= La
+    else:
+        assert p.G == 32 and (p.nb - 1) * 32 * p.R < La <= p.nb * 32 * p.R
+    if La >= 4096:
+        assert B * p.nb >= 128
+    if La <= 64:
+        assert p.nb == 1
+
+
+@pytest.mark.parametrize("B,La,R", [
+    (16, 40, 4), (256, 40, 4), (1001, 37, 4), (4096, 40, 4), (16384, 40, 4),
+    (64, 128, 4), (64, 129, 8), (256, 300, 8), (32, 4096, 8), (8, 8192, 8)])
+def test_sw_plan_rows(B, La, R):
+    """R = 4 while an alignment fits one warp at 4 rows a lane (lane
+    groups, whatever the batch), else R = 8 (one band to 256 rows, then
+    bands of 256 rows)."""
+    p = sw_plan(La, 40)
+    assert p.R == R and (p.nb == 1) is (La <= 256)
 
 
 def test_sw_protein_mode_submatrix():
