@@ -5,7 +5,7 @@ Phases, each printing its own lines:
   2. build: every CUDA kernel and the host chaining library, from the
      sources in this checkout, all compilers at once; registers and spills
      of each SW instantiation (ptxas) and the SASS instructions of its
-     step loop per cell (cuobjdump);
+     step loop per cell (cuobjdump), the nucleotide ones against PERF.md's;
   3. the SW kernel against its plain PyTorch version on the card, bit-exact
      on all 7 outputs, at the TIR gate, annotation, LTR and longer widths,
      a ragged batch and N-heavy rows, and at border shapes that force each
@@ -13,12 +13,23 @@ Phases, each printing its own lines:
      device time, and CUDA events a call), plain ms, and the bound from the
      recurrence's int32 operations; each R (rows a lane) at those shapes
      against the plan's pick;
-  4. the TIR discovery path at the headline size (the 8 Mbp clean bench
-     substrate, seed 7) on cuda, with the launch counts zeroed just before
-     and read just after; the 3 planted TIR families must be accepted; and
-     the same path on a 160 kbp genome on cuda and on the CPU, which must
-     agree exactly;
-  5. the kernel line, the card line, and the result line (last).
+  4. the kernel's protein mode (BLOSUM62 from a table in shared memory)
+     against the plain version, the same way, at the domain confirm's
+     widths 64-2048 and at X-heavy, all-X, invalid-code and band borders;
+  5. on the 8 Mbp clean bench substrate (seed 7) on cuda, with the launch
+     counts zeroed just before each path and read just after: the TIR
+     discovery path (te_type "tir", cold), which must accept the 3 planted
+     TIR families; then this slice's main path, stages 1-2b for te_type
+     "all" (the TIR, Helitron and non-LTR modules over one shared copy
+     join, then the low-copy rescue), which must accept the 3 TIR, 2
+     Helitron and 2 SINE families and launch sw and sw_protein; each
+     kernel at that path's own shapes; the main path again, warm, under
+     the profiler (device busy share, top device ops);
+  6. cuda against the CPU, which must agree exactly: the TIR path on a
+     160 kbp genome, the modules path with the rescue on a 240 kbp genome
+     with planted TIR, Helitron and SINE copies, and the rescue of a
+     planted TIRPeps entry (which must launch sw_protein);
+  7. the kernel line, the card line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
 Detailed numbers go to smoke_out/chip_smoke.json.
@@ -40,6 +51,7 @@ import torch
 from hite_tpu_torch import kernels
 from hite_tpu_torch.native import runtime as native_rt
 from hite_tpu_torch.ops import terminal
+from hite_tpu_torch.ops.protein import AA_X, BLOSUM62
 from hite_tpu_torch.utils import log as hlog
 
 # published H100 SXM figures: HBM bytes/s (data sheet); the int32 rate,
@@ -54,7 +66,9 @@ PEAK_INSTR_S = 132 * 4 * 32 * 1.98e9
 # states it, whatever kernel computes it: the substitution 2 (compare,
 # select), the three candidates 3 (adds), h = max(0, ...) 3, the first
 # argmax 3 (compares), the carried start, matches and length 4 x 3 selects
-# + 2 adds, and the running best 1 compare + 7 selects
+# + 2 adds, and the running best 1 compare + 7 selects.  In protein mode
+# a table lookup (address, load) takes the place of the compare and
+# select, so the count is the same
 SW_OPS_PER_CELL = 2 + 3 + 3 + 3 + 14 + 8
 
 SW_SHAPES = [  # (label, B, La, Lb, n_frac)
@@ -85,6 +99,32 @@ SW_BORDERS = [
 ]
 # each R at the shapes callers send, against the plan's pick (device time)
 SW_SWEEP = [(B, La, Lb) for _, B, La, Lb, _ in SW_SHAPES] + [(256, 40, 40)]
+# registers / step-loop SASS a cell of the nucleotide instantiations as
+# PERF.md's table records them; the protein mode must leave them alone
+NUCLEOTIDE_RECORDED = {
+    (4, True, False): (60, 45.0), (4, False, False): (71, 54.75),
+    (4, True, True): (64, 116.25), (4, False, True): (85, 142.75),
+    (8, True, False): (94, 37.75), (8, False, False): (115, 48.75),
+    (8, True, True): (103, 72.5), (8, False, True): (142, 88.0)}
+
+# protein mode (BLOSUM62) as the domain engine calls it
+PROTEIN = dict(mismatch=-4, gap=8, invalid_code=AA_X)
+# the confirm's [B, w] x [B, w] shapes: w a power of two, 64-1024 seen on
+# the bench substrates, longer for whole long library entries
+PROTEIN_SHAPES = [("dom_w64", 4, 64), ("dom_w256", 8, 256),
+                  ("dom_w512", 32, 512), ("dom_w1024", 4, 1024),
+                  ("dom_w2048", 16, 2048)]
+# (label, B, La, Lb, X fraction, R, planted best cell or None); X-heavy
+# inputs carry an all-X row and rows that differ only in invalid codes
+PROTEIN_BORDERS = [
+    ("x_heavy", 64, 256, 256, 0.4, None, None),
+    ("x_heavy_banded", 8, 700, 500, 0.3, None, None),
+    ("R4_one_band", 32, 100, 120, 0.1, 4, None),
+    ("R8_one_band_ragged_groups", 45, 37, 53, 0.1, 8, None),
+    ("R4_banded", 8, 512, 512, 0.0, 4, None),
+    ("R8_banded_best_on_band_row", 6, 700, 600, 0.0, 8, (256, 600)),
+    ("R4_banded_best_on_band_row", 4, 300, 250, 0.0, 4, (128, 200)),
+]
 
 
 def card_line() -> str:
@@ -126,9 +166,63 @@ def sw_inputs(B, La, Lb, n_frac, seed, best_at=None):
     return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
 
 
-def sw(a, b, R=None, packed=None):
+def protein_inputs(B, La, Lb, x_frac, seed, best_at=None):
+    """Random amino-acid codes (0-19) with a planted, 10%-substituted
+    shared core per row and X (20) padding past a random length, as the
+    domain engine pads its confirm rows; uint8 on the card.  With
+    `x_frac`, X at random, an all-X row and rows whose a and b differ only
+    in invalid codes (20-25); `best_at` plants a long identical core ending
+    at that DP cell, X after it, in every row."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 20, (B, La)).astype(np.uint8)
+    b = rng.integers(0, 20, (B, Lb)).astype(np.uint8)
+    core = max(1, min(La, Lb) // 3)
+    for r in range(B if not best_at else 0):
+        qa = int(rng.integers(0, La - core + 1))
+        qb = int(rng.integers(0, Lb - core + 1))
+        c = a[r, qa : qa + core].copy()
+        sub = rng.random(core) < 0.1
+        c[sub] = rng.integers(0, 20, int(sub.sum()))
+        b[r, qb : qb + core] = c
+        a[r, int(rng.integers(La // 2, La + 1)):] = AA_X
+        b[r, int(rng.integers(Lb // 2, Lb + 1)):] = AA_X
+    if best_at:
+        i, j = best_at
+        n = min(i, j, 150)
+        for r in range(B):
+            a[r, i - n : i] = b[r, j - n : j] = rng.integers(0, 20, n)
+        a[:, i : i + 8] = AA_X
+        b[:, j : j + 8] = AA_X
+    if x_frac:
+        a[rng.random((B, La)) < x_frac] = AA_X
+        b[rng.random((B, Lb)) < x_frac / 2] = AA_X
+        a[::7] = AA_X
+        for r in range(3, B, 11):
+            n = min(La, Lb)
+            b[r, :n] = a[r, :n]
+            inv = rng.random(n) < 0.5
+            a[r, :n][inv] = rng.integers(20, 26, int(inv.sum()))
+            b[r, :n][inv] = rng.integers(20, 26, int(inv.sum()))
+    dev = torch.device("cuda")
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def sw(a, b, R=None, packed=None, protein=False):
+    """The kernel (no synchronise), nucleotide or protein mode."""
+    if protein:
+        return terminal._sw_cuda(a, b, match=2, R=R, packed=packed,
+                                 submatrix=BLOSUM62, **PROTEIN)
     return terminal._sw_cuda(a, b, match=2, mismatch=-3, gap=4,
                              invalid_code=4, R=R, packed=packed)
+
+
+def plain_sw(a, b, protein=False):
+    """The plain version on the same device, in the same mode."""
+    if protein:
+        return terminal.batched_local_align(
+            a, b, submatrix=torch.from_numpy(BLOSUM62).to(a.device),
+            **PROTEIN)
+    return terminal.batched_local_align(a, b)
 
 
 def _cuobjdump() -> str:
@@ -171,11 +265,13 @@ def sass_step_counts(lib_path: str) -> dict:
 
 
 def kernel_variant(name: str):
-    """(R, packed, banded) of a sw_kernel instantiation's mangled name."""
-    m = re.search(r"sw_kernelILi(\d+)E([jy])Lb([01])EE", name)
+    """(R, packed, banded, protein) of a sw_kernel instantiation's mangled
+    name."""
+    m = re.search(r"sw_kernelILi(\d+)E([jy])Lb([01])ELb([01])EE", name)
     if not m:
         raise ValueError(f"not a sw_kernel instantiation: {name}")
-    return int(m.group(1)), m.group(2) == "j", m.group(3) == "1"
+    return (int(m.group(1)), m.group(2) == "j", m.group(3) == "1",
+            m.group(4) == "1")
 
 
 def ptxas_report(log: str) -> dict:
@@ -195,22 +291,24 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def sass_per_cell(lib_path: str, log: str) -> dict:
-    """{(R, packed, banded): step-loop SASS instructions per cell},
-    printing the registers, spills and step-loop counts of every
-    instantiation."""
+def sass_per_cell(lib_path: str, log: str):
+    """({(R, packed, banded, protein): step-loop SASS instructions per
+    cell}, {same key: registers}), printing the registers, spills and
+    step-loop counts of every instantiation."""
     regs = ptxas_report(log)
-    per = {}
+    per, nregs = {}, {}
     for fn, n in sorted(sass_step_counts(lib_path).items()):
         key = kernel_variant(fn)
-        R, packed, banded = key
+        R, packed, banded, protein = key
         r, ss, sl = regs.get(fn, (None, None, None))
         per[key] = n / R if n else None
+        nregs[key] = r
         print(f"build: sw R={R} {'packed' if packed else 'unpacked'} "
-              f"{'banded' if banded else 'one band'}: {r} registers, spills "
+              f"{'banded' if banded else 'one band'}"
+              f"{' protein' if protein else ''}: {r} registers, spills "
               f"{ss}/{sl} B, step loop {n} SASS instructions = {per[key]} "
               "per cell")
-    return per
+    return per, nregs
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -235,15 +333,16 @@ def sw_bound_ms(B, La, Lb, ops_per_cell, ops_per_s):
                                        else "operations")
 
 
-def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None):
+def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None,
+             protein=False):
     """Kernel vs plain on the same inputs: bit-exact on all 7 outputs."""
     B, La = a.shape
     Lb = b.shape[1]
     plan = terminal.sw_plan(La, Lb, R=R, packed=packed)
-    got = sw(a, b, R, packed)
+    got = sw(a, b, R, packed, protein)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = terminal.batched_local_align(a, b)
+    ref = plain_sw(a, b, protein)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
@@ -257,12 +356,12 @@ def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None):
         on = int(((ref.qe == best_at[0]) & (ref.se == best_at[1])).sum())
         assert on >= 1, f"{label}: no best cell at {best_at}"
         label = f"{label} ({on}/{B} bests at {best_at})"
-    dev_ms, ms = sw_device_ms(a, b, reps, R, packed)
+    dev_ms, ms = sw_device_ms(a, b, reps, R, packed, protein)
     kernel_ms = dev_ms or ms
     bound, by = sw_bound_ms(B, La, Lb, SW_OPS_PER_CELL, PEAK_INT32_S)
     # diagnostic, not a bound of the function: the kernel's own step-loop
     # instructions at the card's issue rate
-    per_cell = sass.get((plan.R, plan.packed, plan.nb > 1))
+    per_cell = sass.get((plan.R, plan.packed, plan.nb > 1, protein))
     issue = (per_cell * B * La * Lb / PEAK_INSTR_S * 1e3 if per_cell
              else None)
     row = dict(shape=label, B=B, La=La, Lb=Lb, plan=plan._asdict(),
@@ -270,7 +369,8 @@ def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None):
                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                sass_per_cell=per_cell, sass_instr_ms=issue,
                cells_per_s=B * La * Lb / (kernel_ms * 1e-3))
-    print(f"sw {label}: B={B} {La}x{Lb} R={plan.R} G={plan.G} "
+    print(f"{'sw_protein' if protein else 'sw'} {label}: B={B} {La}x{Lb} "
+          f"R={plan.R} G={plan.G} "
           f"bands={plan.nb} {'packed' if plan.packed else 'unpacked'}: "
           f"kernel {kernel_ms:.4f} ms ({'device' if dev_ms else 'events'}"
           f"; {ms:.4f} ms a call by events)  plain {plain_ms:.1f} ms  "
@@ -280,18 +380,18 @@ def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None):
     return row
 
 
-def sw_device_ms(a, b, n, R=None, packed=None):
+def sw_device_ms(a, b, n, R=None, packed=None, protein=False):
     """Per-launch device time of the SW kernel from torch.profiler kernel
     durations (None if the profiler saw no kernel), and the per-call
     CUDA-event time of the same loop (which includes the host enqueue
     when launches are short)."""
-    sw(a, b, R, packed)
+    sw(a, b, R, packed, protein)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         for _ in range(n):
-            sw(a, b, R, packed)
+            sw(a, b, R, packed, protein)
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA
@@ -299,15 +399,14 @@ def sw_device_ms(a, b, n, R=None, packed=None):
     dev_us = sum(e.self_device_time_total for e in ev)
     count = sum(e.count for e in ev)
     return (dev_us / count / 1e3 if count else None), cuda_ms(
-        lambda: sw(a, b, R, packed), n)
+        lambda: sw(a, b, R, packed, protein), n)
 
 
-def build_bench_genome(length: int):
-    """The bench substrate (clean): planted TIR, Helitron, SINE and LTR
-    families on a seed-7 random background.  Returns (flat codes,
-    {TIR family index: [(start, end) of each planted copy]})."""
-    rng = np.random.default_rng(7)
-    bg = rng.integers(0, 4, length).astype(np.uint8)
+def make_planter(bg, rng):
+    """plant(te, n, tsd=0, host_at=False, mut=0.02) -> copy starts: the
+    bench's rule for placing n mutated copies of te at random spots of bg
+    (no two within 200 bp), with a TSD or an A|T host site."""
+    length = len(bg)
     bins = {}
 
     def overlaps(pos, end):
@@ -339,35 +438,64 @@ def build_bench_genome(length: int):
             starts.append(pos)
         return starts
 
-    enc = {c: i for i, c in enumerate("ACGT")}
-    codes = lambda s: np.array([enc[c] for c in s], np.uint8)
-    tir = {}
+    return plant
+
+
+def _codes(s: str) -> np.ndarray:
+    return np.array(["ACGT".index(c) for c in s], np.uint8)
+
+
+def _tir_te(rng, interior):
+    t = rng.integers(0, 4, 20).astype(np.uint8)
+    while t[0] == 3 and t[1] == 2:
+        t = rng.integers(0, 4, 20).astype(np.uint8)
+    return np.concatenate([t, rng.integers(0, 4, interior).astype(np.uint8),
+                           (3 - t)[::-1]])
+
+
+def _helitron_te(rng, interior):
+    return np.concatenate([
+        _codes("TCTCTACTA"), rng.integers(0, 4, interior).astype(np.uint8),
+        _codes("CAATGAACG" + "ACGTACGTA" + "CTAGT")])
+
+
+def _sine_te(rng, interior):
+    return np.concatenate([rng.integers(0, 4, interior).astype(np.uint8),
+                           np.zeros(14, np.uint8)])
+
+
+def build_bench_genome(length: int):
+    """The bench substrate (clean): planted TIR, Helitron, SINE and LTR
+    families on a seed-7 random background.  Returns (flat codes,
+    {"TIR" | "Helitron" | "SINE": {family index: [(start, end) of each
+    planted copy]}})."""
+    rng = np.random.default_rng(7)
+    bg = rng.integers(0, 4, length).astype(np.uint8)
+    plant = make_planter(bg, rng)
+    fams = {"TIR": {}, "Helitron": {}, "SINE": {}}
+
+    def record(cls, f, te, starts):
+        fams[cls][f] = [(s, s + len(te)) for s in starts]
+
     for f in range(3):
         n, interior = ((20, 460), (15, 900), (10, 1400))[f % 3]
-        t = rng.integers(0, 4, 20).astype(np.uint8)
-        while t[0] == 3 and t[1] == 2:
-            t = rng.integers(0, 4, 20).astype(np.uint8)
-        te = np.concatenate([t, rng.integers(0, 4, interior).astype(np.uint8),
-                             (3 - t)[::-1]])
-        tir[f] = [(s, s + len(te)) for s in plant(te, n, tsd=5)]
+        te = _tir_te(rng, interior)
+        record("TIR", f, te, plant(te, n, tsd=5))
     for f in range(2):
         n, interior = ((8, 700), (8, 1200))[f % 2]
-        te = np.concatenate([
-            codes("TCTCTACTA"), rng.integers(0, 4, interior).astype(np.uint8),
-            codes("CAATGAACG" + "ACGTACGTA" + "CTAGT")])
-        plant(te, n, host_at=True)
+        te = _helitron_te(rng, interior)
+        record("Helitron", f, te, plant(te, n, host_at=True))
     for f in range(2):
         n, interior = ((20, 280), (20, 420))[f % 2]
-        te = np.concatenate([rng.integers(0, 4, interior).astype(np.uint8),
-                             np.zeros(14, np.uint8)])
-        plant(te, n, tsd=12)
+        te = _sine_te(rng, interior)
+        record("SINE", f, te, plant(te, n, tsd=12))
     for f in range(4):
         n, ltr_len = ((4, 250), (4, 350), (4, 450), (4, 600))[f % 4]
         t = rng.integers(0, 4, ltr_len).astype(np.uint8)
         t[0], t[1], t[-2], t[-1] = 3, 2, 1, 0
         te = np.concatenate([t, rng.integers(0, 4, 2200).astype(np.uint8), t])
         plant(te, n, tsd=5, mut=0.01)
-    return bg, tir
+    return bg, fams
 
 
 def small_genome():
@@ -388,28 +516,135 @@ def small_genome():
     return bg
 
 
-def tir_path(bg, device, params=None, cfg=None):
-    """init_mask -> tandem mask -> coarse -> gindex -> modules_stage."""
-    from hite_tpu_torch.config import PipelineConfig
+def small_modules_genome():
+    """240 kbp genome with one planted TIR (8 copies), Helitron (6) and
+    SINE (8) family each (for the modules path's cuda-vs-CPU check)."""
+    rng = np.random.default_rng(29)
+    bg = rng.integers(0, 4, 240_000).astype(np.uint8)
+    plant = make_planter(bg, rng)
+    plant(_tir_te(rng, 460), 8, tsd=5)
+    plant(_helitron_te(rng, 700), 6, host_at=True)
+    plant(_sine_te(rng, 280), 8, tsd=12)
+    return bg
+
+
+def discover_and_verify(bg, device, cfg):
+    """init_mask -> tandem mask -> coarse -> gindex -> modules_stage, with
+    cfg sized to the genome.  Returns (genome, cfg, coarse, modules)."""
     from hite_tpu_torch.genome import Genome
     from hite_tpu_torch.pipeline.coarse import CoarseParams, coarse_discover
     from hite_tpu_torch.pipeline.copies import GenomeIndex
     from hite_tpu_torch.pipeline.run import _mask_tandem_regions, modules_stage
-    from hite_tpu_torch.utils.log import stage_timer
 
     genome = Genome.from_dict({"chr1": bg}, device=device)
-    cfg = (cfg or PipelineConfig(te_type="tir")).with_genome_size(genome.size)
-    params = params or CoarseParams()
+    cfg = cfg.with_genome_size(genome.size)
+    params = CoarseParams()
     genome.init_mask()
-    with stage_timer("pipeline.tandem_mask"):
+    with hlog.stage_timer("pipeline.tandem_mask"):
         _mask_tandem_regions(genome)
-    with stage_timer("pipeline.coarse"):
+    with hlog.stage_timer("pipeline.coarse"):
         coarse = coarse_discover(genome, cfg.align, params)
-    with stage_timer("pipeline.gindex"):
+    with hlog.stage_timer("pipeline.gindex"):
         gindex = GenomeIndex(genome, cfg.align, seg_len=params.seg_len)
-    with stage_timer("pipeline.modules"):
+    with hlog.stage_timer("pipeline.modules"):
         mods = modules_stage(genome, coarse, cfg, gindex)
+    return genome, cfg, coarse, mods
+
+
+def tir_path(bg, device):
+    """The TIR discovery path (te_type="tir"): (genome, coarse, TIR
+    module)."""
+    from hite_tpu_torch.config import PipelineConfig
+
+    genome, _cfg, coarse, mods = discover_and_verify(
+        bg, device, PipelineConfig(te_type="tir"))
     return genome, coarse, mods["tir"]
+
+
+def modules_path(bg, device):
+    """Stages 1-2b of run_pipeline for the default te_type="all": the
+    discovery, the TIR, Helitron and non-LTR gates, one shared copy join,
+    each module verified, then the low-copy structural and domain rescue.
+    Returns (genome, coarse, modules, low-copy counts before the rescue,
+    rescued count)."""
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.pipeline.run import _rescue_low_copy
+
+    genome, cfg, coarse, mods = discover_and_verify(bg, device,
+                                                    PipelineConfig())
+    assert cfg.te_type == "all" and list(mods) == ["tir", "helitron",
+                                                   "non_ltr"]
+    low = {k: len(m.low_copy) for k, m in mods.items()}
+    with hlog.stage_timer("pipeline.low_copy_rescue"):
+        rescued = _rescue_low_copy(genome, cfg, **mods)
+    return genome, coarse, mods, low, rescued
+
+
+def same_modules(a, b):
+    """Two modules-path results agree exactly: coarse candidates, and per
+    module the accepted intervals and their labels, consensus, copy
+    counts and low-copy set, and the rescued count."""
+    (_ga, ca, ma, la, ra), (_gb, cb, mb, lb, rb) = a, b
+    assert np.array_equal(ca, cb) and la == lb and ra == rb
+    assert list(ma) == list(mb)
+    for k in ma:
+        x, y = ma[k], mb[k]
+        assert np.array_equal(x.accepted.intervals, y.accepted.intervals), k
+        assert x.accepted.meta.keys() == y.accepted.meta.keys(), k
+        assert all(np.array_equal(x.accepted.meta[m], y.accepted.meta[m])
+                   for m in x.accepted.meta), k
+        assert x.copy_counts == y.copy_counts, k
+        assert len(x.consensus) == len(y.consensus), k
+        assert all(np.array_equal(p, q)
+                   for p, q in zip(x.consensus, y.consensus)), k
+        assert np.array_equal(x.low_copy.intervals, y.low_copy.intervals), k
+
+
+def found_families(truth, accepted):
+    """Per planted family: a copy and an accepted interval overlap by 90%
+    of each."""
+    return [any(min(e, ae) - max(s, as_) >= 0.9 * (e - s)
+                and min(e, ae) - max(s, as_) >= 0.9 * (ae - as_)
+                for s, e in copies for as_, ae in accepted)
+            for _f, copies in sorted(truth.items())]
+
+
+# codons that translate back to each amino acid (X as alanine)
+SAFE_CODON = {"A": "GCA", "R": "CGA", "N": "AAC", "D": "GAC", "C": "TGC",
+              "Q": "CAA", "E": "GAA", "G": "GGA", "H": "CAC", "I": "ATC",
+              "L": "CTA", "K": "AAA", "M": "ATG", "F": "TTC", "P": "CCA",
+              "S": "TCA", "T": "ACA", "W": "TGG", "Y": "TAC", "V": "GTA",
+              "X": "GCA"}
+
+
+def rescue_scenario(device):
+    """The low-copy domain rescue of tests/test_rescue.py: the TIRPeps
+    entry nearest 160 aa planted whole into a 20 kbp random genome, one
+    low-copy candidate around it and one random.  Returns (rescued count,
+    accepted intervals, low-copy intervals left)."""
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.ops.protein import decode_protein
+    from hite_tpu_torch.pipeline.candidates import CandidateSet
+    from hite_tpu_torch.pipeline.domain import read_protein_fasta
+    from hite_tpu_torch.pipeline.run import DATA_DIR, _rescue_low_copy
+    from hite_tpu_torch.pipeline.verify import ModuleResult
+
+    lib = read_protein_fasta(os.path.join(DATA_DIR, "protein",
+                                          "TIRPeps.lib"))
+    _n, prot = min(lib.items(), key=lambda kv: abs(len(kv[1]) - 160))
+    dom = _codes("".join(SAFE_CODON[c] for c in decode_protein(prot)))
+    bg = np.random.default_rng(0).integers(0, 4, 20_000).astype(np.uint8)
+    bg[5_000 : 5_000 + len(dom)] = dom
+    genome = Genome.from_dict({"chr1": bg}, device=device)
+    mod = ModuleResult(
+        accepted=CandidateSet(intervals=np.zeros((0, 2), np.int64)),
+        consensus=[], copy_counts=[],
+        low_copy=CandidateSet(intervals=np.array(
+            [[4_900, 5_000 + len(dom) + 100], [12_000, 12_600]])))
+    n = _rescue_low_copy(genome, PipelineConfig(), tir=mod)
+    return (n, mod.accepted.intervals.tolist(),
+            mod.low_copy.intervals.tolist())
 
 
 def main() -> int:
@@ -434,10 +669,24 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     report["build_s"] = build_s
     assert native_rt.available(), "native chain library did not load"
-    sass = sass_per_cell(kernels._lib_path("sw"), kernels.BUILD_LOG["sw"])
-    report["sass_per_cell"] = {
-        f"R{r}_{'packed' if p else 'unpacked'}_{'banded' if bd else 'one'}": n
-        for (r, p, bd), n in sass.items()}
+    sass, nregs = sass_per_cell(kernels._lib_path("sw"),
+                                kernels.BUILD_LOG["sw"])
+    tag = {k: f"R{k[0]}_{'packed' if k[1] else 'unpacked'}_"
+              f"{'banded' if k[2] else 'one'}{'_protein' if k[3] else ''}"
+           for k in sass}
+    report["sass_per_cell"] = {tag[k]: n for k, n in sass.items()}
+    report["registers"] = {tag[k]: n for k, n in nregs.items()}
+    assert {k[:3] for k in sass if k[3]} == {
+        (R, True, bd) for R in terminal.SW_ROWS for bd in (False, True)}, \
+        "protein mode: packed R 4 and 8, one band and banded"
+    nuc = {k[:3]: (nregs[k], sass[k]) for k in sass if not k[3]}
+    changed = {k: (v, NUCLEOTIDE_RECORDED.get(k)) for k, v in nuc.items()
+               if v != NUCLEOTIDE_RECORDED.get(k)}
+    print("build: nucleotide instantiations' registers / step-loop SASS a "
+          "cell " + ("equal PERF.md's" if not changed else
+                     f"differ from PERF.md's: {changed}"))
+    report["nucleotide_vs_recorded"] = {str(k): v
+                                        for k, v in changed.items()}
 
     # ---- SW kernel vs plain, listed shapes, borders and forced variants
     rows = []
@@ -489,9 +738,43 @@ def main() -> int:
             "the fastest)")
     report["sw_sweep"] = sweep
 
-    # ---- the TIR path at 8 Mbp on cuda
+    # ---- protein mode (BLOSUM62 from the 32 x 32 shared-memory table)
+    # against the plain version: the domain confirm's shapes and borders
+    prot_rows = []
+    for i, (label, B, L) in enumerate(PROTEIN_SHAPES):
+        a, b = protein_inputs(B, L, L, 0.0, seed=400 + i)
+        row = check_sw(label, a, b, 20, sass, protein=True)
+        # the table's cost: the nucleotide mode at the same shape and plan
+        a, b = sw_inputs(B, L, L, 0.0, seed=400 + i)
+        dev_ms, ms = sw_device_ms(a, b, 20)
+        row["nucleotide_ms"] = dev_ms or ms
+        print(f"sw_protein {label}: nucleotide mode at the same shape "
+              f"{row['nucleotide_ms']:.4f} ms; protein / nucleotide "
+              f"{row['ms'] / row['nucleotide_ms']:.3f}")
+        prot_rows.append(row)
+    prot_borders = []
+    for i, (label, B, La, Lb, xf, R, at) in enumerate(PROTEIN_BORDERS):
+        a, b = protein_inputs(B, La, Lb, xf, seed=500 + i, best_at=at)
+        prot_borders.append(check_sw(label, a, b, 10, sass, R=R,
+                                     best_at=at, protein=True))
+    a = torch.full((4, 64), AA_X, dtype=torch.uint8, device="cuda")
+    for R in terminal.SW_ROWS:
+        zero = [int(f[0]) for f in sw(a, a.clone(), R, protein=True)]
+        assert zero == [0, 1, 1, 1, 1, 0, 0], zero
+    variants = {(r["plan"]["R"], r["plan"]["nb"] > 1)
+                for r in prot_rows + prot_borders}
+    assert variants == {(R, bd) for R in terminal.SW_ROWS
+                        for bd in (False, True)}, variants
+    report["sw_protein_shapes"] = prot_rows
+    report["sw_protein_borders"] = prot_borders
+    print("kernels: sw_protein (cuda, hite_tpu_torch/csrc/sw.cu, protein "
+          f"mode) bit-exact at {len(prot_rows)} shapes and "
+          f"{len(prot_borders)} border shapes, R 4 and 8, one band and "
+          "banded")
+
+    # ---- the TIR path at 8 Mbp on cuda (cold: the first path run)
     length = 8_000_000
-    bg, tir_truth = build_bench_genome(length)
+    bg, truth = build_bench_genome(length)
     print(f"tir path: bench substrate {length} bp, seed 7, clean")
     hlog.STAGE_TIMES.clear()
     hlog.COUNTERS.clear()
@@ -503,7 +786,6 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
     chain_calls = native_rt.CALLS["fmea_chain"]
     stages = dict(hlog.STAGE_TIMES)
     for k, v in stages.items():
@@ -519,12 +801,7 @@ def main() -> int:
                for t in (v if isinstance(v, tuple) else (v,)))
     assert launches["sw"] > 0, "the TIR path never launched the SW kernel"
     assert chain_calls > 0, "the TIR path never used the native chaining"
-    found = []
-    for f, copies in tir_truth.items():
-        hit = any(min(e, ae) - max(s, as_) >= 0.9 * (e - s)
-                  and min(e, ae) - max(s, as_) >= 0.9 * (ae - as_)
-                  for s, e in copies for as_, ae in acc)
-        found.append(hit)
+    found = found_families(truth["TIR"], acc)
     print(f"tir path: planted TIR families accepted {found}")
     assert all(found), "a planted TIR family was not accepted"
     report["tir_path"] = dict(bp=length, wall_s=wall, stages=stages,
@@ -533,22 +810,81 @@ def main() -> int:
                               low_copy=len(res.low_copy),
                               launches=launches, chain_calls=chain_calls,
                               counters=dict(hlog.COUNTERS))
+    del genome
 
-    # kernel at the main path's own shapes (these launches are not counted)
-    main_rows = []
-    for (B, La, Lb), n in sorted(shapes["sw"].items(), key=lambda x: -x[1]):
-        a, b = sw_inputs(B, La, Lb, 0.0, seed=B + La)
-        main_rows.append(dict(check_sw(f"main_B{B}", a, b, 50, sass),
-                              launches=n))
+    # ---- this slice's main path: stages 1-2b for te_type="all" at 8 Mbp
+    print(f"modules path: bench substrate {length} bp, seed 7, te_type all")
+    hlog.STAGE_TIMES.clear()
+    hlog.COUNTERS.clear()
+    native_rt.CALLS["fmea_chain"] = 0
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    genome, coarse, mods, low, rescued = modules_path(bg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    shapes = {k: dict(v) for k, v in kernels.LAUNCH_SHAPES.items()}
+    chain_calls = native_rt.CALLS["fmea_chain"]
+    stages = dict(hlog.STAGE_TIMES)
+    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"modules path stage {k}: {v:.3f} s")
+    assert genome.device.type == "cuda"
+    fams = {"tir": "TIR", "helitron": "Helitron", "non_ltr": "SINE"}
+    mod_report, all_found = {}, {}
+    for k, m in mods.items():
+        accepted = m.accepted.intervals
+        labels = m.accepted.meta.get("te_type")
+        found = found_families(truth[fams[k]], accepted)
+        all_found[fams[k]] = found
+        print(f"modules path {k}: accepted {len(accepted)} families, copy "
+              f"counts {m.copy_counts}; low-copy {low[k]} before the "
+              f"rescue, {len(m.low_copy)} after; planted {fams[k]} "
+              f"families accepted {found}"
+              + (f"; labels {sorted(set(labels.tolist()))}"
+                 if labels is not None else ""))
+        mod_report[k] = dict(accepted=accepted.tolist(),
+                             copy_counts=m.copy_counts, low_copy=low[k],
+                             low_copy_after=len(m.low_copy), found=found)
+    print(f"modules path: wall {wall:.2f} s; coarse candidates "
+          f"{len(coarse)}; rescued {rescued}; sw launches {launches['sw']}; "
+          f"sw_protein launches {launches['sw_protein']} at "
+          f"{shapes['sw_protein']}; native chain calls {chain_calls}")
+    assert all(all(v) for v in all_found.values()), \
+        f"a planted family was not accepted: {all_found}"
+    assert launches["sw"] > 0, "the modules path never launched sw"
+    assert launches["sw_protein"] > 0, \
+        "the modules path never launched the protein mode"
+    report["modules_path"] = dict(
+        bp=length, wall_s=wall, stages=stages, coarse=len(coarse),
+        modules=mod_report, rescued=rescued, launches=launches,
+        launch_shapes={k: {str(s): n for s, n in v.items()}
+                       for k, v in shapes.items()},
+        chain_calls=chain_calls, counters=dict(hlog.COUNTERS))
+    del genome, mods
+
+    # each kernel at the main path's own shapes (these launches are not
+    # counted): sw with nucleotide inputs, sw_protein with amino acids
+    main_rows = {"sw": [], "sw_protein": []}
+    for kname, protein in (("sw", False), ("sw_protein", True)):
+        for (B, La, Lb), n in sorted(shapes[kname].items(),
+                                     key=lambda x: -x[1]):
+            if protein:
+                a, b = protein_inputs(B, La, Lb, 0.0, seed=B + La)
+            else:
+                a, b = sw_inputs(B, La, Lb, 0.0, seed=B + La)
+            main_rows[kname].append(dict(
+                check_sw(f"main_B{B}", a, b, 50, sass, protein=protein),
+                launches=n))
     report["sw_main_shapes"] = main_rows
 
-    # ---- the same path again, warm, under the profiler: device busy share
+    # ---- the modules path again, warm, under the profiler: device busy
     hlog.STAGE_TIMES.clear()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        tir_path(bg, "cuda")
+        modules_path(bg, "cuda")
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
     # device-side kernel events only (operator rows repeat their kernels'
@@ -556,24 +892,29 @@ def main() -> int:
     avg = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in avg)
-    top = sorted(avg, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(avg, key=lambda e: -e.self_device_time_total)[:10]
     warm_stages = dict(hlog.STAGE_TIMES)
+    for k, v in sorted(warm_stages.items(), key=lambda kv: -kv[1]):
+        print(f"modules path warm stage {k}: {v:.3f} s")
     if busy_us > 0:
-        print(f"tir path warm (profiled): wall {warm:.2f} s; device busy "
-              f"{busy_us / 1e6:.3f} s = {busy_us / 1e4 / warm:.1f}% of wall")
+        print(f"modules path warm (profiled): wall {warm:.2f} s; device "
+              f"busy {busy_us / 1e6:.3f} s = {busy_us / 1e4 / warm:.1f}% of "
+              "wall")
         for e in top:
             print(f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
                   f"{e.count:7d} calls  {e.key[:70]}")
     else:
-        print(f"tir path warm (profiled): wall {warm:.2f} s; device busy "
-              "not measured (the profiler saw no device time)")
-    report["tir_path_warm"] = dict(
+        print(f"modules path warm (profiled): wall {warm:.2f} s; device "
+              "busy not measured (the profiler saw no device time)")
+    report["modules_path_warm"] = dict(
         wall_s=warm, device_busy_s=busy_us / 1e6, stages=warm_stages,
         top_device_ops=[(e.key, e.self_device_time_total / 1e3, e.count)
                         for e in top])
+    del prof, bg
 
-    # ---- device vs CPU on a small genome (the CPU path is held against
-    # the JAX package by the tests)
+    # ---- device vs CPU on small genomes (the CPU path is held against the
+    # JAX package by the tests): the TIR path, the modules path with the
+    # rescue, and the rescue of a planted TIRPeps entry
     small = small_genome()
     _g, c_gpu, r_gpu = tir_path(small, "cuda")
     _g, c_cpu, r_cpu = tir_path(small, "cpu")
@@ -583,24 +924,48 @@ def main() -> int:
     assert all(np.array_equal(x, y) for x, y in zip(r_gpu.consensus,
                                                     r_cpu.consensus))
     assert len(r_gpu.accepted) >= 1
-    print(f"small path: cuda == cpu; {len(c_gpu)} candidates, accepted "
+    print(f"small tir path: cuda == cpu; {len(c_gpu)} candidates, accepted "
           f"{r_gpu.accepted.intervals.tolist()} copies {r_gpu.copy_counts}")
+    small = small_modules_genome()
+    on_gpu = modules_path(small, "cuda")
+    on_cpu = modules_path(small, "cpu")
+    same_modules(on_gpu, on_cpu)
+    assert all(len(m.accepted) >= 1 for m in on_gpu[2].values())
+    print(f"small modules path ({len(small)} bp): cuda == cpu; "
+          f"{len(on_gpu[1])} candidates; " + "; ".join(
+              f"{k} accepted {m.accepted.intervals.tolist()} copies "
+              f"{m.copy_counts}" for k, m in on_gpu[2].items())
+          + f"; low-copy {on_gpu[3]}, rescued {on_gpu[4]}")
+    kernels.reset_launches()
+    res = {dev: rescue_scenario(dev) for dev in ("cuda", "cpu")}
+    assert kernels.LAUNCHES["sw_protein"] > 0, \
+        "the planted-domain rescue never launched the protein mode"
+    assert res["cuda"] == res["cpu"] and res["cuda"][0] == 1, res
+    print(f"planted-domain rescue (20 kbp, one TIRPeps entry): cuda == cpu; "
+          f"rescued {res['cuda'][0]} of 2 low-copy candidates, "
+          f"{kernels.LAUNCHES['sw_protein']} sw_protein launches")
 
-    # ---- kernel line: main-path-weighted time of the kernel (device time
+    # ---- kernel line: main-path-weighted time of each kernel (device time
     # from the profiler where it saw the kernel, else the event time) and
     # of the bound (the recurrence's int32 operations at the int32 rate)
-    tot = sum(r["launches"] for r in main_rows)
-    wavg = lambda key: sum(r[key] * r["launches"] for r in main_rows) / tot
-    top = max(main_rows, key=lambda r: r["launches"])
-    kline = {"kernels": [{
-        "name": "sw", "route": "cuda", "source": "hite_tpu_torch/csrc/sw.cu",
-        "replaces": "hite_tpu/ops/terminal_pallas.py:47",
-        "launches": launches["sw"],
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in rows + borders + main_rows),
-        "ms": wavg("ms"), "plain_ms": wavg("plain_ms"),
-        "bound_ms": wavg("bound_ms"), "bound_by": top["bound_by"],
-        "library_ms": None}]}
+    entries = []
+    for kname, replaces, checks in (
+            ("sw", "hite_tpu/ops/terminal_pallas.py:47", rows + borders),
+            ("sw_protein", "hite_tpu/ops/terminal.py:157",
+             prot_rows + prot_borders)):
+        mr = main_rows[kname]
+        tot = sum(r["launches"] for r in mr)
+        wavg = lambda key: sum(r[key] * r["launches"] for r in mr) / tot
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "hite_tpu_torch/csrc/sw.cu", "replaces": replaces,
+            "launches": launches[kname],
+            "max_abs_err": max(r["max_abs_err"] for r in checks + mr),
+            "ms": wavg("ms"), "plain_ms": wavg("plain_ms"),
+            "bound_ms": wavg("bound_ms"),
+            "bound_by": max(mr, key=lambda r: r["launches"])["bound_by"],
+            "library_ms": None})
+    kline = {"kernels": entries}
     report["kernel_line"] = kline
     os.makedirs("smoke_out", exist_ok=True)
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as fh:

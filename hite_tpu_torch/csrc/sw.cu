@@ -17,6 +17,17 @@
 // Output int32 out[7][B] = score (>= 0), qs = si, qe = row, ss = sj,
 // se = column, matches, alen.  Any La, Lb and B.
 //
+// Protein mode (TAB) replaces the nucleotide substitution, and nothing
+// else, with a table: sub = table[x][y] where both codes are valid, else
+// mismatch (the plain version's `submatrix` mode, which the domain engine
+// calls with BLOSUM62, mismatch -4, gap 8, invalid code 20 = X).  The host
+// passes a 32 x 32 int32 table (ops/terminal.py:sw_table: the caller's
+// entries for codes below the invalid code, mismatch everywhere else)
+// that each block loads into shared memory once; an invalid a code is
+// recoded to 30 and an invalid b code to 31, so an invalid pair reads a
+// mismatch entry and `im = x == y` stays the match test.  Instantiated for
+// packed fields only (R 4 and 8, one band and banded).
+//
 // Design.  The unit of work is a GROUP of G lanes of one warp that owns a
 // band of G * R DP rows of one alignment, R consecutive rows per lane
 // whose previous-column cells live in registers.  Lane g works on column
@@ -86,12 +97,19 @@ __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+constexpr int TAB_W = 32;      // protein table row width (codes 0-31)
+constexpr int TAB_INV_A = 30;  // an invalid a code in protein mode
+constexpr int TAB_INV_B = 31;  // an invalid b code in protein mode
+
 // The substitution term of one cell: a code x against a b code y, both
-// recoded so that an invalid code equals nothing.  A protein table in
-// shared memory replaces this one function.
+// recoded so that an invalid code equals nothing; in protein mode (TAB)
+// the table entry, which is `mismatch` wherever a code is invalid.
+template <bool TAB>
 __device__ __forceinline__ int sub_score(int x, int y, int match,
-                                         int mismatch, int& im) {
+                                         int mismatch, const int* tab,
+                                         int& im) {
   im = x == y;
+  if (TAB) return tab[x * TAB_W + y];
   return im ? match : mismatch;
 }
 
@@ -108,14 +126,22 @@ __device__ __forceinline__ bool better(int h, W key, int bh, W bkey) {
 
 // BANDED: nb > 1 bands of G = 32 lanes, one warp each, with the hand-off;
 // otherwise one band a group, and the step loop carries no hand-off code.
-template <int R, typename W, bool BANDED>
+// TAB: protein mode, scores from the 32 x 32 `table`.
+template <int R, typename W, bool BANDED, bool TAB>
 __global__ void __launch_bounds__(WARPS * 32)
 sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
           int B, int La, int Lb, int match, int mismatch, int gap, int inv,
           int G, int nb, int* __restrict__ out, int* __restrict__ sync,
           W* __restrict__ ho_st, W* __restrict__ ho_ml,
-          int* __restrict__ ho_h, W* __restrict__ bests) {
+          int* __restrict__ ho_h, W* __restrict__ bests,
+          const int* __restrict__ table) {
   constexpr int S = 4 * sizeof(W);  // bits per packed half
+  __shared__ int s_tab[TAB ? TAB_W * TAB_W : 1];
+  if (TAB) {  // before any warp leaves: every thread reaches the barrier
+    for (int t = threadIdx.x; t < TAB_W * TAB_W; t += WARPS * 32)
+      s_tab[t] = table[t];
+    __syncthreads();
+  }
   constexpr W LOW = (W(1) << S) - 1;
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
@@ -155,7 +181,7 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 #pragma unroll
   for (int q = 0; q < R; ++q) {
     const int x = q < nrows ? (int)arow[top - 1 + q] : inv;
-    aq[q] = x < inv ? x : 0x100;
+    aq[q] = x < inv ? x : (TAB ? TAB_INV_A : 0x100);
     col[q] = {0, (W)(top + q) << S, 0};  // column 0: fresh (i, 0)
   }
   Cell<W> above_prev = {0, (W)(top - 1) << S, 0};  // cell (top - 1, 0)
@@ -197,7 +223,7 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   for (int s = 0; s < steps; ++s) {
     const int j = s - g + 1;
     const bool on = j >= 1 && j <= Lb && nrows > 0;
-    const int bc = bnext < inv ? bnext : 0x200;
+    const int bc = bnext < inv ? bnext : (TAB ? TAB_INV_B : 0x200);
     if (Lb > 0) bnext = brow[min(max(j, 0), Lb - 1)];
     Cell<W> hand = {0, (W)(s + 1), 0};  // row 0: fresh (0, s + 1)
     if (consume) {  // warp-uniform
@@ -225,7 +251,8 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
       for (int q = 0; q < R; ++q) {
         const Cell<W> left = col[q];
         int im;
-        const int cd = diag.h + sub_score(aq[q], bc, match, mismatch, im);
+        const int cd =
+            diag.h + sub_score<TAB>(aq[q], bc, match, mismatch, s_tab, im);
         // max(0, cd, left - gap, up - gap)
         const int h = __viaddmax_s32_relu(up.h, -gap, max(cd, left.h - gap));
         const W key = ((W)(top + q) << S) | jw;
@@ -324,10 +351,11 @@ Layout layout(long long B, long long Lb, long long nb, int wbytes) {
   return L;
 }
 
-template <int R, typename W, bool BANDED>
+template <int R, typename W, bool BANDED, bool TAB>
 cudaError_t launch(const uint8_t* a, const uint8_t* b, int B, int La, int Lb,
                    int match, int mismatch, int gap, int inv, int G, int nb,
-                   int* out, int* sync, char* scratch, cudaStream_t stream) {
+                   int* out, int* sync, char* scratch, const int* table,
+                   cudaStream_t stream) {
   const long long warps =
       nb > 1 ? (long long)B * nb : ((long long)B + 32 / G - 1) / (32 / G);
   const long long blocks = (warps + WARPS - 1) / WARPS;
@@ -342,34 +370,36 @@ cudaError_t launch(const uint8_t* a, const uint8_t* b, int B, int La, int Lb,
     bests = (W*)(scratch + L.bests);
     h = (int*)(scratch + L.h);
   }
-  sw_kernel<R, W, BANDED><<<(unsigned)blocks, WARPS * 32, 0, stream>>>(
+  sw_kernel<R, W, BANDED, TAB><<<(unsigned)blocks, WARPS * 32, 0, stream>>>(
       a, b, B, La, Lb, match, mismatch, gap, inv, G, nb, out, sync, st, ml, h,
-      bests);
+      bests, table);
   return cudaGetLastError();
 }
 
-template <int R, typename W>
+template <int R, typename W, bool TAB>
 cudaError_t launch_r(const uint8_t* a, const uint8_t* b, int B, int La,
                      int Lb, int match, int mismatch, int gap, int inv, int G,
                      int nb, int* out, int* sync, char* scratch,
-                     cudaStream_t st) {
+                     const int* table, cudaStream_t st) {
   if (nb > 1)
-    return launch<R, W, true>(a, b, B, La, Lb, match, mismatch, gap, inv, G,
-                              nb, out, sync, scratch, st);
-  return launch<R, W, false>(a, b, B, La, Lb, match, mismatch, gap, inv, G,
-                             nb, out, sync, scratch, st);
+    return launch<R, W, true, TAB>(a, b, B, La, Lb, match, mismatch, gap, inv,
+                                   G, nb, out, sync, scratch, table, st);
+  return launch<R, W, false, TAB>(a, b, B, La, Lb, match, mismatch, gap, inv,
+                                  G, nb, out, sync, scratch, table, st);
 }
 
-template <typename W>
+template <typename W, bool TAB>
 cudaError_t dispatch(int R, const uint8_t* a, const uint8_t* b, int B,
                      int La, int Lb, int match, int mismatch, int gap,
                      int inv, int G, int nb, int* out, int* sync,
-                     char* scratch, cudaStream_t st) {
+                     char* scratch, const int* table, cudaStream_t st) {
   switch (R) {
-    case 4: return launch_r<4, W>(a, b, B, La, Lb, match, mismatch, gap, inv,
-                                  G, nb, out, sync, scratch, st);
-    case 8: return launch_r<8, W>(a, b, B, La, Lb, match, mismatch, gap, inv,
-                                  G, nb, out, sync, scratch, st);
+    case 4: return launch_r<4, W, TAB>(a, b, B, La, Lb, match, mismatch, gap,
+                                       inv, G, nb, out, sync, scratch, table,
+                                       st);
+    case 8: return launch_r<8, W, TAB>(a, b, B, La, Lb, match, mismatch, gap,
+                                       inv, G, nb, out, sync, scratch, table,
+                                       st);
   }
   return cudaErrorInvalidValue;
 }
@@ -390,30 +420,39 @@ extern "C" long long sw_sync_ints(int B, int nb) {
 
 // Launch on `stream` with the plan (R rows a lane, G lanes a group, nb
 // bands, packed 16-bit fields or not) that ops/terminal.py:sw_plan chose;
-// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue
-// for a plan that does not cover the shape.
+// `table` (32 x 32 int32 on the device, or null) selects protein mode.
+// Returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
+// a plan that does not cover the shape, or a table with unpacked fields
+// or an invalid code past the table's codes.
 extern "C" int sw_launch(const void* a, const void* b, int B, int La, int Lb,
                          int match, int mismatch, int gap, int invalid_code,
                          int R, int G, int nb, int packed, void* out,
-                         void* sync, void* scratch, void* stream) {
+                         void* sync, void* scratch, const void* table,
+                         void* stream) {
   if (B <= 0) return 0;
   const bool ok =
       G >= 1 && G <= 32 && nb >= 1 &&
       (nb == 1 ? (long long)G * R >= La
                : G == 32 && (long long)nb * 32 * R >= La &&
                      (long long)(nb - 1) * 32 * R < La && sync && scratch) &&
-      (!packed || (La < 65536 && Lb < 65536));
+      (!packed || (La < 65536 && Lb < 65536)) &&
+      (!table || (packed && invalid_code >= 0 && invalid_code <= TAB_INV_A));
   if (!ok) return (int)cudaErrorInvalidValue;
   const auto* a8 = (const uint8_t*)a;
   const auto* b8 = (const uint8_t*)b;
+  const auto* tab = (const int*)table;
   auto st = (cudaStream_t)stream;
+  if (table)
+    return (int)dispatch<unsigned, true>(
+        R, a8, b8, B, La, Lb, match, mismatch, gap, invalid_code, G, nb,
+        (int*)out, (int*)sync, (char*)scratch, tab, st);
   if (packed)
-    return (int)dispatch<unsigned>(R, a8, b8, B, La, Lb, match, mismatch, gap,
-                                   invalid_code, G, nb, (int*)out, (int*)sync,
-                                   (char*)scratch, st);
-  return (int)dispatch<unsigned long long>(
+    return (int)dispatch<unsigned, false>(
+        R, a8, b8, B, La, Lb, match, mismatch, gap, invalid_code, G, nb,
+        (int*)out, (int*)sync, (char*)scratch, nullptr, st);
+  return (int)dispatch<unsigned long long, false>(
       R, a8, b8, B, La, Lb, match, mismatch, gap, invalid_code, G, nb,
-      (int*)out, (int*)sync, (char*)scratch, st);
+      (int*)out, (int*)sync, (char*)scratch, nullptr, st);
 }
 
 extern "C" const char* sw_error_string(int code) {

@@ -27,8 +27,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> launches since the last reset_launches(), and the input
 # shapes they were launched at (shape tuple -> launches)
-LAUNCHES: Dict[str, int] = {"sw": 0}
-LAUNCH_SHAPES: Dict[str, Dict[tuple, int]] = {"sw": {}}
+LAUNCHES: Dict[str, int] = {"sw": 0, "sw_protein": 0}
+LAUNCH_SHAPES: Dict[str, Dict[tuple, int]] = {"sw": {}, "sw_protein": {}}
 
 _CUDA_SOURCES = {"sw": os.path.join(_PKG, "csrc", "sw.cu")}
 _CHAIN_SOURCE = os.path.join(_PKG, "native", "chain.cc")

@@ -9,15 +9,18 @@ length so identity and length gates need no traceback.
 `batched_local_align_auto` is the kernel wrapper: a CPU tensor goes to the
 plain version `batched_local_align` (an anti-diagonal loop over whole
 tensors, the oracle), a CUDA tensor to the hand-written kernel
-`csrc/sw.cu`, or the call raises.
+`csrc/sw.cu`, or the call raises.  With `submatrix` (protein mode: the
+domain engine's BLOSUM62) the kernel scores from a table in shared memory
+and counts its launches as "sw_protein".
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from hite_tpu_torch import kernels
@@ -238,7 +241,7 @@ def _sw_lib() -> ctypes.CDLL:
     """The loaded `csrc/sw.cu` library with its argtypes, resolved once."""
     lib = kernels.load("sw")
     lib.sw_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 11
-                              + [ctypes.c_void_p] * 4)
+                              + [ctypes.c_void_p] * 5)
     lib.sw_launch.restype = ctypes.c_int
     lib.sw_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.sw_scratch_bytes.restype = ctypes.c_longlong
@@ -249,16 +252,70 @@ def _sw_lib() -> ctypes.CDLL:
     return lib
 
 
+SW_TABLE_WIDTH = 32   # codes of the kernel's protein table (csrc/sw.cu)
+SW_TABLE_INV = 30     # the largest invalid code a table launch takes
+
+
+def _table_array(submatrix) -> np.ndarray:
+    return np.asarray(submatrix.cpu() if isinstance(submatrix, torch.Tensor)
+                      else submatrix).astype(np.int64)
+
+
+def sw_table(submatrix, mismatch: int, invalid_code: int) -> np.ndarray:
+    """The kernel's 32 x 32 int32 protein table: `submatrix[x, y]` (codes
+    clamped to its shape, as the plain version indexes it) for codes x, y
+    below `invalid_code`, `mismatch` everywhere else, so the kernel's
+    recoded invalid codes (30 for a, 31 for b) score a mismatch.  Raises
+    for a table wider than 32 codes."""
+    sub = _table_array(submatrix)
+    if sub.ndim != 2 or max(sub.shape) > SW_TABLE_WIDTH:
+        raise ValueError(f"the SW kernel takes a table of at most "
+                         f"{SW_TABLE_WIDTH} x {SW_TABLE_WIDTH} codes, got "
+                         f"{sub.shape}")
+    if not 0 <= invalid_code <= SW_TABLE_INV:
+        raise ValueError(f"invalid_code {invalid_code} out of the table's "
+                         f"range 0..{SW_TABLE_INV}")
+    tab = np.full((SW_TABLE_WIDTH, SW_TABLE_WIDTH), mismatch, np.int32)
+    codes = np.arange(invalid_code)
+    tab[:invalid_code, :invalid_code] = sub[
+        np.minimum(codes, sub.shape[0] - 1)[:, None],
+        np.minimum(codes, sub.shape[1] - 1)[None, :]]
+    return tab
+
+
+_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_table(submatrix, mismatch: int, invalid_code: int,
+                  device: torch.device) -> torch.Tensor:
+    """`sw_table` on `device`, uploaded once per table."""
+    sub = _table_array(submatrix)
+    key = (sub.shape, sub.tobytes(), mismatch, invalid_code, str(device))
+    tab = _TABLES.get(key)
+    if tab is None:
+        tab = torch.from_numpy(sw_table(sub, mismatch, invalid_code))
+        tab = _TABLES[key] = tab.to(device)
+    return tab
+
+
 def _sw_cuda(a: torch.Tensor, b: torch.Tensor, *, match: int,
              mismatch: int, gap: int, invalid_code: int,
-             R: Optional[int] = None, packed: Optional[bool] = None
-             ) -> LocalAlign:
+             R: Optional[int] = None, packed: Optional[bool] = None,
+             submatrix=None) -> LocalAlign:
     """Launch `csrc/sw.cu` on the current stream (no synchronise).  `R`
     and `packed` force a variant (chip_smoke.py holds each against the
-    plain version); by default `sw_plan` chooses."""
+    plain version); by default `sw_plan` chooses.  `submatrix` selects
+    protein mode, which has packed fields only."""
     B, La = a.shape
     Lb = b.shape[1]
     dev = a.device
+    table = None
+    if submatrix is not None:
+        if packed is False or not sw_packs(La, Lb):
+            raise ValueError("protein mode has packed fields only (widths "
+                             f"below 65536), got La={La}, Lb={Lb}, "
+                             f"packed={packed}")
+        table = _device_table(submatrix, mismatch, invalid_code, dev)
     out = torch.empty((7, B), dtype=torch.int32, device=dev)
     if B == 0:
         return LocalAlign(*out.unbind(0))
@@ -275,13 +332,15 @@ def _sw_cuda(a: torch.Tensor, b: torch.Tensor, *, match: int,
             invalid_code, plan.R, plan.G, plan.nb, int(plan.packed),
             out.data_ptr(), None if sync is None else sync.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
+            None if table is None else table.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
         rc = lib.sw_launch(*args)
     if rc != 0:
         raise RuntimeError(f"sw kernel launch failed ({plan}): "
                            + lib.sw_error_string(rc).decode())
-    kernels.count_launch("sw", (B, La, Lb))
+    kernels.count_launch("sw" if table is None else "sw_protein",
+                         (B, La, Lb))
     return LocalAlign(*out.unbind(0))
 
 
@@ -293,18 +352,25 @@ def batched_local_align_auto(
     mismatch: int = -3,
     gap: int = 4,
     invalid_code: int = 4,
+    submatrix: Optional[Union[torch.Tensor, np.ndarray]] = None,
 ) -> LocalAlign:
-    """Nucleotide SW: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors; anything else raises.  Any La, Lb and B (the JAX
-    package fell back to XLA past La = 16000; the kernel has no limit)."""
+    """SW: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors; anything else raises.  Any La, Lb and B (the JAX package fell
+    back to XLA past La = 16000; the kernel has no limit), below 65536 in
+    protein mode (`submatrix`, a table of at most 32 x 32 codes: wider
+    raises on every device)."""
     _check_inputs(a, b)
     kw = dict(match=match, mismatch=mismatch, gap=gap,
               invalid_code=invalid_code)
+    if submatrix is not None:
+        sw_table(submatrix, mismatch, invalid_code)   # raises if too wide
     if a.device.type == "cpu":
-        return batched_local_align(a, b, **kw)
+        if submatrix is not None:
+            submatrix = torch.from_numpy(_table_array(submatrix))
+        return batched_local_align(a, b, submatrix=submatrix, **kw)
     if a.device.type != "cuda":
         raise ValueError(f"no SW kernel for device {a.device}")
-    return _sw_cuda(a, b, **kw)
+    return _sw_cuda(a, b, submatrix=submatrix, **kw)
 
 
 class TerminalRepeat(NamedTuple):

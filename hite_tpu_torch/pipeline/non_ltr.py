@@ -1,0 +1,176 @@
+"""De-novo non-LTR (LINE/SINE) detection module (counterpart of the JAX
+`pipeline/non_ltr.py`).
+
+Re-implements `module/judge_Non_LTR_transposons.py` (SURVEY.md §2.A):
+candidates are length-gated into SINE (100-700bp) / LINE (700bp-8kb)
+windows (`Util.py:11018-11025`), must end in a polyA or short-tandem tail
+with an 8-20bp TSD (`search_polyA_TSD`, `Util.py:10915-11006`), then pass
+one round of MSA boundary adjudication with the non-LTR judge
+(`judge_boundary_v9` `Util.py:9483-9720`): homology must break cleanly at
+the 5' end only, and enough rows must carry tail+TSD evidence at the 3'
+end (accept when tsd votes >= 5 or > rows/2).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hite_tpu_torch.config import PipelineConfig
+from hite_tpu_torch.genome import Genome
+from hite_tpu_torch.ops.tail import tail_scan
+from hite_tpu_torch.ops.tandem import tandem_fraction
+from hite_tpu_torch.pipeline.boundary_adjust import FamilyAnalysis
+from hite_tpu_torch.pipeline.candidates import pad_rows, pad_seqs
+from hite_tpu_torch.pipeline.copies import GenomeIndex
+from hite_tpu_torch.pipeline.verify import ModuleResult, verify_families
+from hite_tpu_torch.utils.log import logger, stage_timer
+
+
+def make_nonltr_judge(cfg: PipelineConfig):
+    """Judge: clean 5' homology break + per-row polyA/TSD 3' evidence."""
+    ncfg = cfg.non_ltr
+
+    def judge(fa: FamilyAnalysis) -> Tuple[bool, int, int]:
+        M = fa.M
+        R, L = M.shape
+        present_rows = (M < 4).any(1)
+        present = int(present_rows.sum())
+        if not fa.left_found:
+            return False, fa.left_pos, fa.right_pos
+        bl = fa.left_pos
+        br = fa.right_pos  # right anchor (may be fuzzy; polyA blurs homology)
+
+        # per-row 3' evidence (judge_boundary_v9): locate each row's
+        # polyA/T tail END inside the zone around the homology boundary,
+        # then demand an 8-20bp TSD pairing the 5' flank with the bases
+        # right AFTER that row's tail
+        votes = 0
+        row_ends: List[int] = []
+        zone_lo = max(br - 25, 0)
+        zone_hi = min(br + 25, L)
+        for r in range(R):
+            if not present_rows[r]:
+                continue
+            zone = M[r, zone_lo:zone_hi]
+            for base in (0, 3):                       # polyA / polyT
+                run_len, run_end = _longest_run_end(zone == base)
+                if run_len < ncfg.tail_min_a:
+                    continue
+                end_col = zone_lo + run_end           # exclusive tail end
+                hit = False
+                # +-4 bp left-boundary slack: the family-level homology
+                # break is fuzzy by a few bp when rows coincidentally
+                # agree just outside the element (judge_boundary_v9
+                # likewise scans a vicinity, Util.py:11163-11230)
+                for s in range(ncfg.tsd_min, ncfg.tsd_max + 1):
+                    for dl in (0, -1, 1, -2, 2, -3, 3, -4, 4):
+                        b0 = bl + dl
+                        if b0 - s < 0 or end_col + s > L:
+                            continue
+                        left = M[r, b0 - s : b0]
+                        right = M[r, end_col : end_col + s]
+                        if (left >= 4).any() or (right >= 4).any():
+                            continue
+                        if int((left != right).sum()) <= 1:
+                            hit = True
+                            break
+                    if hit:
+                        break
+                if hit:
+                    votes += 1
+                    row_ends.append(end_col)
+                    break
+        ok = votes >= min(ncfg.min_tsd_votes, max(1, present // 2 + 1))
+        if ok and row_ends:
+            br = int(np.median(row_ends))
+        return ok, bl, br
+
+    return judge
+
+
+def _longest_run_end(mask: np.ndarray) -> Tuple[int, int]:
+    """(length, exclusive end offset) of the longest True run."""
+    best = cur = 0
+    best_end = 0
+    for i, v in enumerate(mask):
+        cur = cur + 1 if v else 0
+        if cur > best:
+            best = cur
+            best_end = i + 1
+    return best, best_end
+
+
+def tail_gate(
+    genome: Genome,
+    intervals: np.ndarray,
+    cfg: PipelineConfig,
+) -> np.ndarray:
+    """Keep candidates in SINE/LINE length windows ending in a tail."""
+    ncfg = cfg.non_ltr
+    lens = intervals[:, 1] - intervals[:, 0]
+    size_ok = ((lens >= ncfg.sine_min) & (lens <= ncfg.sine_max)) | \
+              ((lens >= ncfg.line_min) & (lens <= ncfg.line_max))
+    intervals = intervals[size_ok]
+    if len(intervals) == 0:
+        return intervals
+    seqs = [genome.extract(s, e) for s, e in intervals]
+    mat, slens = pad_seqs(seqs, n_rows=pad_rows(len(seqs)))
+    tc = tail_scan(torch.from_numpy(mat).to(genome.device),
+                   torch.from_numpy(slens).to(genome.device))
+    polya = tc.polya_len.cpu().numpy()[: len(intervals)]
+    polyt = tc.polyt_len.cpu().numpy()[: len(intervals)]
+    tandem = tc.tandem_len.cpu().numpy()[: len(intervals)]
+    has_tail = (polya >= ncfg.tail_min_a) | (polyt >= ncfg.tail_min_a) | \
+               (tandem >= 2 * ncfg.tail_min_a)
+    return intervals[has_tail]
+
+
+def gate_non_ltr(
+    genome: Genome,
+    coarse_intervals: np.ndarray,
+    cfg: PipelineConfig,
+) -> np.ndarray:
+    """Non-LTR gating phase: tandem filter + length/tail gate."""
+    if len(coarse_intervals) == 0:
+        return np.zeros((0, 2), np.int64)
+
+    with stage_timer("non_ltr.tandem_filter"):
+        seqs = [genome.extract(s, e) for s, e in coarse_intervals]
+        mat, lens = pad_seqs(seqs, n_rows=pad_rows(len(seqs)))
+        frac = tandem_fraction(torch.from_numpy(mat).to(genome.device),
+                               torch.from_numpy(lens).to(genome.device)
+                               ).cpu().numpy()
+        frac = frac[: len(coarse_intervals)]
+        coarse_intervals = coarse_intervals[frac < cfg.tandem.tandem_region_cutoff]
+
+    with stage_timer("non_ltr.tail_gate"):
+        gated = tail_gate(genome, coarse_intervals, cfg)
+    logger.info("non_ltr: %d/%d candidates pass length+tail gate",
+                len(gated), len(coarse_intervals))
+    return gated
+
+
+def run_non_ltr_detection(
+    genome: Genome,
+    coarse_intervals: np.ndarray,
+    cfg: PipelineConfig,
+    gindex: Optional[GenomeIndex] = None,
+    gated: Optional[np.ndarray] = None,
+    plan=None,
+    rep_copy_sets=None,
+) -> ModuleResult:
+    if gated is None:
+        gated = gate_non_ltr(genome, coarse_intervals, cfg)
+    result = verify_families(
+        genome, gated, cfg, make_nonltr_judge(cfg),
+        min_copies=cfg.msa.min_copy_tir, stage="non_ltr", gindex=gindex,
+        plan=plan, rep_copy_sets=rep_copy_sets)
+    # label SINE vs LINE by final length
+    if len(result.accepted):
+        lens = result.accepted.lengths
+        labels = np.where(lens <= cfg.non_ltr.sine_max, "SINE", "LINE")
+        result.accepted.meta["te_type"] = labels
+    return result

@@ -24,11 +24,14 @@ MODULES = [
     "hite_tpu_torch.ops.selfjoin", "hite_tpu_torch.ops.kmer",
     "hite_tpu_torch.ops.libjoin", "hite_tpu_torch.ops.msa",
     "hite_tpu_torch.ops.boundary", "hite_tpu_torch.ops.chain",
+    "hite_tpu_torch.ops.protein", "hite_tpu_torch.ops.seedext",
+    "hite_tpu_torch.ops.lcv", "hite_tpu_torch.ops.tail",
     "hite_tpu_torch.pipeline.candidates", "hite_tpu_torch.pipeline.coarse",
     "hite_tpu_torch.pipeline.copies", "hite_tpu_torch.pipeline.cluster",
     "hite_tpu_torch.pipeline.boundary_adjust",
     "hite_tpu_torch.pipeline.verify", "hite_tpu_torch.pipeline.tir",
-    "hite_tpu_torch.pipeline.run",
+    "hite_tpu_torch.pipeline.domain", "hite_tpu_torch.pipeline.helitron",
+    "hite_tpu_torch.pipeline.non_ltr", "hite_tpu_torch.pipeline.run",
 ]
 
 
@@ -80,6 +83,15 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError):
         Genome.from_dict(seqs, device="cuda")
     assert Genome.from_dict(seqs, device="cpu").device.type == "cpu"
+
+    from hite_tpu_torch.pipeline.domain import DomainScanner, rt_motif_present
+
+    lib = {"P": np.arange(20, dtype=np.uint8)}
+    with pytest.raises(RuntimeError):
+        DomainScanner(lib)
+    with pytest.raises(RuntimeError):
+        rt_motif_present([np.zeros(300, np.uint8)])
+    assert DomainScanner(lib, device="cpu").index.codes.device.type == "cpu"
 
 
 def test_kernel_wrapper_needs_cuda_tensors_off_cpu():

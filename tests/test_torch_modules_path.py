@@ -1,0 +1,381 @@
+"""The copy-verified modules and the low-copy rescue of hite_tpu_torch vs
+hite_tpu, stage by stage.
+
+Both sides replay `run_pipeline`'s stages 1-2b for the default
+`te_type="all"`: tandem mask, selfjoin coarse discovery, genome index, the
+TIR, Helitron and non-LTR gates, `prepare_families`, ONE shared copy join,
+each module's verification, and `_rescue_low_copy` (structural TIR branch
+and the TIRPeps / HelitronPeps domain scans), with their own package's
+functions, on the CPU; every stage must agree exactly.  The port's
+verified modules come from its `run.modules_stage`.  Substrates: the
+160 kbp `pipeline_parity` genome and the 2 Mbp bench substrate.  Also the
+Helitron / non-LTR scanners (LCV banks and scores, tail scan) alone, and
+both scenarios of `tests/test_rescue.py`.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_tir_path import _substrate
+
+torch.set_num_threads(2)
+
+MODS = ("tir", "helitron", "non_ltr")
+
+
+def _modules(port: bool):
+    if port:
+        from hite_tpu_torch import config, genome
+        from hite_tpu_torch.pipeline import (
+            coarse, copies, helitron, non_ltr, run, tir, verify,
+        )
+    else:
+        from hite_tpu import config, genome
+        from hite_tpu.pipeline import (
+            coarse, copies, helitron, non_ltr, run, tir, verify,
+        )
+    return dict(config=config, genome=genome, coarse=coarse, copies=copies,
+                helitron=helitron, non_ltr=non_ltr, run=run, tir=tir,
+                verify=verify)
+
+
+def _replay(port: bool, contigs, params_kw, align_kw):
+    m = _modules(port)
+    dev = {"device": "cpu"} if port else {}
+    g = m["genome"].Genome.from_dict(contigs, **dev)
+    cfg = m["config"].PipelineConfig(
+        align=m["config"].AlignConfig(**align_kw)).with_genome_size(g.size)
+    assert cfg.te_type == "all"
+    params = m["coarse"].CoarseParams(**params_kw)
+    g.init_mask()
+    m["run"]._mask_tandem_regions(g)
+    coarse = m["coarse"].coarse_discover(g, cfg.align, params)
+    gindex = m["copies"].GenomeIndex(g, cfg.align, seg_len=params.seg_len)
+    gates = {"tir": m["tir"].gate_tir(g, coarse, cfg),
+             "helitron": m["helitron"].gate_helitron(g, coarse, cfg),
+             "non_ltr": m["non_ltr"].gate_non_ltr(g, coarse, cfg)}
+    plans = {k: m["verify"].prepare_families(g, v, cfg)
+             for k, v in gates.items() if len(v)}
+    union = [(k, i) for k, pl in plans.items() for i in pl.prefetch_idx]
+    sets = m["copies"].CopyFinder(gindex).find_copies(
+        [plans[k].seqs[i] for k, i in union], min_coverage=0.9,
+        max_copies=cfg.msa.max_copies)
+    per_mod = {k: [] for k in plans}
+    for (k, _i), cs in zip(union, sets):
+        per_mod[k].append(cs)
+    if port:
+        # the port's stage 2 as run_pipeline runs it; the JAX side replays
+        # the closure body of its run_pipeline
+        mods = m["run"].modules_stage(g, coarse, cfg, gindex)
+    else:
+        runners = {"tir": m["tir"].run_tir_detection,
+                   "helitron": m["helitron"].run_helitron_detection,
+                   "non_ltr": m["non_ltr"].run_non_ltr_detection}
+        mods = {k: runners[k](g, coarse, cfg, gindex, gated=v,
+                              plan=plans.get(k), rep_copy_sets=per_mod.get(k))
+                for k, v in gates.items()}
+    verified = {k: _snapshot(r) for k, r in mods.items()}
+    low_copy = {k: r.low_copy.intervals.copy() for k, r in mods.items()}
+    rescued = m["run"]._rescue_low_copy(g, cfg, **mods)
+    return dict(genome=g, cfg=cfg, coarse=coarse, gindex=gindex, gates=gates,
+                plans=plans, sets=sets, verified=verified, low_copy=low_copy,
+                mods=mods, rescued=rescued)
+
+
+def _snapshot(r):
+    """A deep copy of a ModuleResult's fields (the rescue mutates it)."""
+    return dict(accepted=r.accepted.intervals.copy(),
+                meta={k: v.copy() for k, v in r.accepted.meta.items()},
+                consensus=[c.copy() for c in r.consensus],
+                copy_counts=list(r.copy_counts),
+                low_copy=r.low_copy.intervals.copy())
+
+
+def _same(a, b):
+    assert np.array_equal(a["accepted"], b["accepted"])
+    assert a["meta"].keys() == b["meta"].keys()
+    for k in a["meta"]:
+        assert np.array_equal(a["meta"][k], b["meta"][k]), k
+    assert a["copy_counts"] == b["copy_counts"]
+    assert len(a["consensus"]) == len(b["consensus"])
+    assert all(np.array_equal(x, y)
+               for x, y in zip(a["consensus"], b["consensus"]))
+    assert np.array_equal(a["low_copy"], b["low_copy"])
+
+
+@pytest.fixture(scope="module", params=("parity_160k", "bench_2mbp"))
+def runs(request):
+    contigs, params_kw, align_kw = _substrate(request.param)
+    return (request.param, _replay(False, contigs, params_kw, align_kw),
+            _replay(True, contigs, params_kw, align_kw))
+
+
+def test_gates_all_modules(runs):
+    name, ref, got = runs
+    assert np.array_equal(ref["coarse"], got["coarse"])
+    for k in MODS:
+        assert np.array_equal(ref["gates"][k], got["gates"][k]), k
+    if name == "bench_2mbp":
+        assert all(len(got["gates"][k]) for k in MODS)
+
+
+def test_shared_join_and_plans(runs):
+    _, ref, got = runs
+    assert list(ref["plans"]) == list(got["plans"])
+    for k in ref["plans"]:
+        assert ref["plans"][k].prefetch_idx == got["plans"][k].prefetch_idx
+        assert ref["plans"][k].rep_idx == got["plans"][k].rep_idx
+    hits = lambda sets: [[(h.start, h.end, h.strand, h.nseeds) for h in s]
+                         for s in sets]
+    assert hits(ref["sets"]) == hits(got["sets"])
+
+
+@pytest.mark.parametrize("mod", MODS)
+def test_verified_module(runs, mod):
+    name, ref, got = runs
+    _same(ref["verified"][mod], got["verified"][mod])
+    assert np.array_equal(ref["low_copy"][mod], got["low_copy"][mod])
+    if name == "bench_2mbp" and mod != "tir":
+        # the 2 planted Helitron and the 2 SINE families are accepted
+        assert len(got["verified"][mod]["accepted"]) >= 2
+
+
+def test_low_copy_rescue(runs):
+    name, ref, got = runs
+    assert ref["rescued"] == got["rescued"]
+    for k in MODS:
+        _same(_snapshot(ref["mods"][k]), _snapshot(got["mods"][k]))
+    if name == "bench_2mbp":
+        assert sum(len(v) for v in got["low_copy"].values()) > 0
+    if name == "parity_160k":
+        # the SINE family is labelled by length
+        assert set(got["mods"]["non_ltr"].accepted.meta["te_type"]) == {"SINE"}
+
+
+def test_modules_stage_equals_replay(runs):
+    """The port's `run.modules_stage` gives, in the gate order tir,
+    helitron, non_ltr, what the JAX replay of gates -> plans -> shared
+    join -> three modules gives for te_type='all'."""
+    _, ref, got = runs
+    assert list(got["verified"]) == list(ref["verified"]) == list(MODS)
+    for k in MODS:
+        _same(ref["verified"][k], got["verified"][k])
+
+
+# ---- the Helitron and non-LTR scanners alone
+
+def test_lcv_banks_identical():
+    from hite_tpu.ops import lcv as jlcv
+    from hite_tpu_torch.ops import lcv as tlcv
+
+    for a, b in zip(jlcv.default_banks(), tlcv.default_banks()):
+        for f in a._fields:
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    head, tail = tlcv.default_banks()
+    assert (len(head.width), len(tail.width)) == (745, 1002)
+    for a, b in zip(jlcv._pad_patterns(jlcv.default_banks()[1]),
+                    tlcv._pad_patterns(tail)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("B,L,tile", [(4, 300, 128), (3, 1000, 2048),
+                                      (8, 257, 64)])
+def test_lcv_scores(B, L, tile):
+    """Per-position scores and widths, N rows and several tiles; planted
+    bench Helitron termini score."""
+    import jax.numpy as jnp
+
+    from hite_tpu.io.fasta import encode_seq
+    from hite_tpu.ops import lcv as jlcv
+    from hite_tpu_torch.ops import lcv as tlcv
+
+    rng = np.random.default_rng(B * L)
+    seqs = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    head = encode_seq("TCTCTACTA")
+    tail = encode_seq("CAATGAACGACGTACGTACTAGT")
+    seqs[0, 20 : 20 + len(head)] = head
+    seqs[0, L - 60 : L - 60 + len(tail)] = tail
+    seqs[1, 40:90] = 4
+    seqs[-1] = 4
+    for jb, tb in zip(jlcv.default_banks(), tlcv.default_banks()):
+        ref = jlcv.lcv_scores(jnp.asarray(seqs), jb, tile=tile)
+        got = tlcv.lcv_scores(torch.from_numpy(seqs), tb, tile=tile)
+        for r, g in zip(ref, got):
+            assert np.array_equal(np.asarray(r), g.numpy())
+        assert int(got[0][0].max()) > 0
+
+
+def test_lcv_scores_budget_tiles(monkeypatch):
+    """A budget smaller than one tile cuts positions into smaller tiles
+    and changes no score."""
+    from hite_tpu_torch.ops import lcv as tlcv
+
+    rng = np.random.default_rng(3)
+    seqs = torch.from_numpy(rng.integers(0, 5, (2, 500)).astype(np.uint8))
+    bank = tlcv.default_banks()[0]
+    ref = tlcv.lcv_scores(seqs, bank, tile=512)
+    monkeypatch.setattr(tlcv, "TILE_BUDGET_BYTES", 2 * 1200 * 4 * 37)
+    got = tlcv.lcv_scores(seqs, bank, tile=512)
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g)
+
+
+def test_tail_scan():
+    import jax.numpy as jnp
+
+    from hite_tpu.ops.tail import tail_scan as jax_tail
+    from hite_tpu_torch.ops.tail import tail_scan
+
+    rng = np.random.default_rng(12)
+    B, L = 16, 200
+    seqs = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    lens = rng.integers(20, L + 1, B).astype(np.int32)
+    for r in range(B):
+        e = lens[r]
+        kind = r % 4
+        if kind == 0:
+            seqs[r, e - 14 : e] = 0
+        elif kind == 1:
+            seqs[r, e - 12 : e - 3] = 3
+        elif kind == 2:
+            seqs[r, e - 18 : e] = np.tile(np.array([0, 2, 1], np.uint8), 6)
+    seqs[5, 150:] = 4
+    lens[6] = 0
+    ref = jax_tail(jnp.asarray(seqs), jnp.asarray(lens))
+    got = tail_scan(torch.from_numpy(seqs), torch.from_numpy(lens))
+    for f in ref._fields:
+        assert np.array_equal(np.asarray(getattr(ref, f)),
+                              getattr(got, f).numpy()), f
+
+
+@pytest.fixture(scope="module")
+def small_genomes():
+    """A 60 kbp genome with planted Helitron and SINE copies (bench
+    construction), on both packages."""
+    from hite_tpu.genome import Genome as JaxGenome
+    from hite_tpu.io.fasta import encode_seq
+    from hite_tpu_torch.genome import Genome
+
+    rng = np.random.default_rng(9)
+    bg = rng.integers(0, 4, 60_000).astype(np.uint8)
+    hel = np.concatenate([encode_seq("TCTCTACTA"),
+                          rng.integers(0, 4, 700).astype(np.uint8),
+                          encode_seq("CAATGAACGACGTACGTACTAGT")])
+    sine = np.concatenate([rng.integers(0, 4, 280).astype(np.uint8),
+                           np.zeros(14, np.uint8)])
+    ivs = []
+    for pos in (3_000, 13_000, 23_000):
+        bg[pos - 1], bg[pos + len(hel)] = 0, 3
+        bg[pos : pos + len(hel)] = hel
+        ivs.append((pos - 30, pos + len(hel) + 30))
+    for pos in (33_000, 43_000, 53_000):
+        t = rng.integers(0, 4, 12).astype(np.uint8)
+        bg[pos - 12 : pos] = t
+        bg[pos + len(sine) : pos + len(sine) + 12] = t
+        bg[pos : pos + len(sine)] = sine
+        ivs.append((pos, pos + len(sine)))
+    ivs.append((40_000, 41_000))
+    ivs = np.array(ivs, np.int64)
+    return (JaxGenome.from_dict({"chr1": bg}),
+            Genome.from_dict({"chr1": bg}, device="cpu"), ivs)
+
+
+def test_lcv_gate_and_tail_gate(small_genomes):
+    from hite_tpu.config import PipelineConfig as JaxConfig
+    from hite_tpu.pipeline import helitron as jh, non_ltr as jn
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.pipeline import helitron as th, non_ltr as tn
+
+    jg, tg, ivs = small_genomes
+    jc, tc = JaxConfig(), PipelineConfig()
+    ref = jh.lcv_gate(jg, ivs, jc)
+    got = th.lcv_gate(tg, ivs, tc)
+    assert np.array_equal(ref, got) and len(got) >= 3
+    ref = jn.tail_gate(jg, ivs, jc)
+    got = tn.tail_gate(tg, ivs, tc)
+    assert np.array_equal(ref, got) and len(got) >= 3
+    assert np.array_equal(jh.gate_helitron(jg, ivs, jc),
+                          th.gate_helitron(tg, ivs, tc))
+    assert np.array_equal(jn.gate_non_ltr(jg, ivs, jc),
+                          tn.gate_non_ltr(tg, ivs, tc))
+
+
+def test_gate_helitron_rejects_eahelitron(small_genomes):
+    """The EAHelitron union is not ported: asking for it raises and never
+    carries on with the LCV gate alone."""
+    from hite_tpu_torch.config import PipelineConfig
+
+    _, tg, ivs = small_genomes
+    cfg = PipelineConfig()
+    cfg = cfg.replace(helitron=cfg.helitron.__class__(use_eahelitron=True))
+    with pytest.raises(NotImplementedError):
+        __import__("hite_tpu_torch.pipeline.helitron", fromlist=["x"]
+                   ).gate_helitron(tg, ivs, cfg)
+
+
+# ---- the two scenarios of tests/test_rescue.py, on both packages
+
+CODON = {"A": "GCA", "R": "CGA", "N": "AAC", "D": "GAC", "C": "TGC",
+         "Q": "CAA", "E": "GAA", "G": "GGA", "H": "CAC", "I": "ATC",
+         "L": "CTA", "K": "AAA", "M": "ATG", "F": "TTC", "P": "CCA",
+         "S": "TCA", "T": "ACA", "W": "TGG", "Y": "TAC", "V": "GTA", "X": "GCA"}
+
+
+def _rescue_scenario(name):
+    """(background, low-copy intervals) of a test_rescue.py scenario."""
+    from hite_tpu_torch.io.fasta import encode_seq
+    from hite_tpu_torch.ops.protein import decode_protein
+    from hite_tpu_torch.pipeline.domain import read_protein_fasta
+    from hite_tpu_torch.pipeline.run import DATA_DIR
+
+    if name == "domain":
+        lib = read_protein_fasta(os.path.join(DATA_DIR, "protein",
+                                              "TIRPeps.lib"))
+        _n, codes = min(lib.items(), key=lambda kv: abs(len(kv[1]) - 160))
+        nt = "".join(CODON.get(a, "GCA") for a in decode_protein(codes))
+        bg = np.random.default_rng(0).integers(0, 4, 20_000).astype(np.uint8)
+        dom = encode_seq(nt)
+        bg[5_000 : 5_000 + len(dom)] = dom
+        return bg, np.array([[4_900, 5_000 + len(dom) + 100],
+                             [12_000, 12_600]])
+    rng = np.random.default_rng(11)
+    bg = rng.integers(0, 4, 30_000).astype(np.uint8)
+    t = rng.integers(0, 4, 20).astype(np.uint8)
+    te = np.concatenate([t, rng.integers(0, 4, 500).astype(np.uint8),
+                         (3 - t)[::-1]])
+    pos = 5_000
+    tsd = rng.integers(0, 4, 5).astype(np.uint8)
+    bg[pos - 5 : pos] = tsd
+    bg[pos + len(te) : pos + len(te) + 5] = tsd
+    bg[pos : pos + len(te)] = te
+    unit = rng.integers(0, 4, 6).astype(np.uint8)
+    bg[12_000:12_600] = np.tile(unit, 100)
+    return bg, np.array([[pos, pos + len(te)], [12_000, 12_600],
+                         [20_000, 20_600]])
+
+
+@pytest.mark.parametrize("scenario", ["domain", "structure"])
+def test_rescue_scenarios(scenario):
+    from hite_tpu_torch import kernels
+
+    bg, low = _rescue_scenario(scenario)
+    out = {}
+    for port in (False, True):
+        m = _modules(port)
+        g = m["genome"].Genome.from_dict({"chr1": bg},
+                                         **({"device": "cpu"} if port else {}))
+        cs = __import__(f"{m['run'].__name__.split('.')[0]}.pipeline."
+                        "candidates", fromlist=["x"]).CandidateSet
+        mod = m["verify"].ModuleResult(
+            accepted=cs(intervals=np.zeros((0, 2), np.int64)), consensus=[],
+            low_copy=cs(intervals=low.copy()), copy_counts=[])
+        n = m["run"]._rescue_low_copy(g, m["config"].PipelineConfig(),
+                                      tir=mod)
+        out[port] = (n, _snapshot(mod))
+    assert out[False][0] == out[True][0] == 1
+    _same(out[False][1], out[True][1])
+    assert out[True][1]["accepted"][0, 0] == low[0, 0]
+    assert kernels.LAUNCHES["sw_protein"] == 0   # CPU: the plain version

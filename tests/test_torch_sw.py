@@ -14,9 +14,11 @@ import torch
 from hite_tpu.ops.terminal import batched_local_align as jax_sw
 from hite_tpu.ops.terminal import find_terminal_repeat as jax_ftr
 from hite_tpu.ops.terminal_pallas import batched_local_align_pallas
+from hite_tpu.ops.protein import AA_X, BLOSUM62
+from hite_tpu_torch.ops import terminal
 from hite_tpu_torch.ops.terminal import (
     SW_ROWS, LocalAlign, batched_local_align, batched_local_align_auto,
-    find_terminal_repeat, sw_plan,
+    find_terminal_repeat, sw_plan, sw_table,
 )
 
 torch.set_num_threads(2)
@@ -139,8 +141,12 @@ def _better(x, y):
 
 
 def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
-                  seed=0, match=2, mismatch=-3, gap=4, inv=4):
+                  seed=0, match=2, mismatch=-3, gap=4, inv=4, table=None):
     """Python model of csrc/sw.cu over a batch A[B, La], Bm[B, Lb].
+
+    `table` (the 32 x 32 `sw_table` of protein mode) scores a cell from
+    the table, with an invalid a code recoded to 30 and an invalid b code
+    to 31 (otherwise 0x100 and 0x200: an invalid code equals nothing).
 
     Warps of `lanes` lanes in lockstep; groups of G lanes, R rows a lane,
     one band (G * R >= La: lanes // G alignments a warp) or bands of
@@ -172,7 +178,8 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
                   for q in range(R)]
             L.append(dict(
                 grp=grp, g=g, aln=aln, top=top, nrows=nrows,
-                aq=[x if x < inv else 0x100 for x in aq],
+                aq=[x if x < inv else (0x100 if table is None else 30)
+                    for x in aq],
                 col=[(0, (top + q) << S, 0) for q in range(R)],
                 above_prev=(0, (top - 1) << S, 0), out=(0, 0, 0),
                 best=(NEG, 0, 0, 0),
@@ -213,12 +220,14 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
                 if not (1 <= j <= Lb and st["nrows"]):
                     continue
                 y = int(Bm[st["aln"], j - 1])
-                bc = y if y < inv else 0x200
+                bc = y if y < inv else (0x200 if table is None else 31)
                 diag, up = st["above_prev"], above
                 for q in range(R):   # all R rows; rows past La are junk
                     left = st["col"][q]
                     im = int(st["aq"][q] == bc)
-                    cd = diag[0] + (match if im else mismatch)
+                    cd = diag[0] + (
+                        (match if im else mismatch) if table is None
+                        else int(table[st["aq"][q], bc]))
                     cu = up[0] - gap
                     h = max(max(up[0], left[0]) - gap, cd, 0)
                     key = ((st["top"] + q) << S) | j
@@ -281,9 +290,9 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
     return out
 
 
-def _model_inputs(rng, B, La, Lb):
-    a = rng.integers(0, 5, (B, La)).astype(np.uint8)
-    b = rng.integers(0, 5, (B, Lb)).astype(np.uint8)
+def _model_inputs(rng, B, La, Lb, n_codes=5):
+    a = rng.integers(0, n_codes, (B, La)).astype(np.uint8)
+    b = rng.integers(0, n_codes, (B, Lb)).astype(np.uint8)
     for r in range(B):
         n = int(rng.integers(0, min(La, Lb) + 1))
         if n and rng.random() < 0.7:
@@ -301,8 +310,19 @@ def _model_inputs(rng, B, La, Lb):
     return a, b
 
 
-def _check_model(a, b, **kw):
-    ref = batched_local_align(torch.from_numpy(a), torch.from_numpy(b))
+# protein mode as the domain engine calls it
+PROTEIN = dict(mismatch=-4, gap=8, invalid_code=AA_X)
+
+
+def _check_model(a, b, table=False, **kw):
+    if table:
+        ref = batched_local_align(torch.from_numpy(a), torch.from_numpy(b),
+                                  submatrix=torch.from_numpy(BLOSUM62),
+                                  **PROTEIN)
+        kw.update(table=sw_table(BLOSUM62, PROTEIN["mismatch"], AA_X),
+                  mismatch=PROTEIN["mismatch"], gap=PROTEIN["gap"], inv=AA_X)
+    else:
+        ref = batched_local_align(torch.from_numpy(a), torch.from_numpy(b))
     np.testing.assert_array_equal(_kernel_model(a, b, **kw),
                                   np.stack([f.numpy() for f in ref]))
 
@@ -316,23 +336,36 @@ _SCHEDULES = [(8, 512, 32, 8, True), (2, 3, 4, 1, True), (1, 4, 3, 2, False),
               (16, 32, 32, 4, False)]
 
 
+# protein mode (BLOSUM62 from the kernel's 32 x 32 table): packed fields
+# only, the kernel's R 4 and 8, one band and banded
+_TABLE_SCHEDULES = [(4, 32, 32, 8, True), (8, 32, 32, 4, True),
+                    (4, 2, 5, 4, True), (8, 3, 4, 2, True)]
+
+
 @pytest.mark.parametrize(
-    "R,lanes,chunk,ahead,packed", _SCHEDULES,
+    "R,lanes,chunk,ahead,packed,table",
+    [s + (False,) for s in _SCHEDULES] + [s + (True,)
+                                          for s in _TABLE_SCHEDULES],
     ids=[f"{r}-{n}" if i < 4 else f"R{r}-lanes{n}-chunk{c}-ahead{h}-"
          f"{'packed' if p else 'wide'}"
-         for i, (r, n, c, h, p) in enumerate(_SCHEDULES)])
-def test_kernel_schedule_matches_plain(R, lanes, chunk, ahead, packed):
+         for i, (r, n, c, h, p) in enumerate(_SCHEDULES)]
+    + [f"R{r}-lanes{n}-chunk{c}-ahead{h}-packed-blosum62-table"
+       for r, n, c, h, _p in _TABLE_SCHEDULES])
+def test_kernel_schedule_matches_plain(R, lanes, chunk, ahead, packed, table):
     """The CUDA kernel's schedule (modelled in Python: lane groups, bands
     handed over in chunks behind progress counts in a random warp order,
-    packed fields) computes what the plain version computes.  Small warps
-    and chunks make several bands and chunks run at small sizes."""
+    packed fields) computes what the plain version computes, in the
+    nucleotide mode and in protein mode (a quarter of the codes invalid).
+    Small warps and chunks make several bands and chunks run at small
+    sizes."""
     rng = np.random.default_rng(R * 1000 + lanes * 10 + chunk)
     for t in range(6):
         B = int(rng.integers(1, 6))
         La, Lb = (int(x) for x in rng.integers(0 if t == 5 else 1, 34, 2))
-        a, b = _model_inputs(rng, B, La, Lb)
+        a, b = _model_inputs(rng, B, La, Lb, n_codes=27 if table else 5)
         _check_model(a, b, R=R, lanes=lanes, chunk=chunk, ahead=ahead,
-                     packed=packed, seed=int(rng.integers(1 << 30)))
+                     packed=packed, seed=int(rng.integers(1 << 30)),
+                     table=table)
 
 
 @pytest.mark.parametrize("R,lanes,chunk", [(1, 4, 3), (2, 4, 5), (2, 3, 2)])
@@ -436,7 +469,10 @@ def test_sw_plan_rows(B, La, R):
 
 def test_sw_protein_mode_submatrix():
     """Protein mode (scores from a substitution table, padding code never
-    scores) of the plain version, to be folded into the kernel later."""
+    scores): the plain version with a random symmetric table, and
+    BLOSUM62 as the domain engine calls it through the kernel wrapper on
+    the CPU (X-heavy rows, an all-X row, pairs that differ only in
+    invalid codes)."""
     rng = np.random.default_rng(61)
     sub = rng.integers(-4, 12, (20, 20)).astype(np.int32)
     sub = (sub + sub.T) // 2
@@ -450,3 +486,56 @@ def test_sw_protein_mode_submatrix():
     got = batched_local_align(torch.from_numpy(a), torch.from_numpy(b),
                               submatrix=torch.from_numpy(sub), **kw)
     _assert_same(ref, got)
+
+    a = rng.integers(0, 20, (8, 64)).astype(np.uint8)
+    b = rng.integers(0, 20, (8, 64)).astype(np.uint8)
+    b[:, 10:50] = a[:, 5:45]
+    b[::3, 20:24] = 7                    # mismatches inside the copy
+    a[1][rng.random(64) < 0.5] = 20      # X-heavy
+    a[2] = 20                            # all X
+    a[3, 30:] = AA_X
+    b[3, 30:] = 25                       # differ only in invalid codes
+    a[4, 50:] = 21
+    b[4, 50:] = 20
+    ref = jax_sw(jnp.asarray(a), jnp.asarray(b),
+                 submatrix=jnp.asarray(BLOSUM62), **PROTEIN)
+    for table in (BLOSUM62, torch.from_numpy(BLOSUM62)):
+        got = batched_local_align_auto(torch.from_numpy(a),
+                                       torch.from_numpy(b),
+                                       submatrix=table, **PROTEIN)
+        _assert_same(ref, got)
+    assert int(got.score[2]) == 0 and int(got.matches[0]) >= 30
+
+
+def test_sw_table_layout():
+    """The kernel's table: BLOSUM62 for valid codes, `mismatch` in every
+    row and column of an invalid code (30 and 31 included)."""
+    tab = sw_table(BLOSUM62, -4, AA_X)
+    assert tab.shape == (32, 32) and tab.dtype == np.int32
+    np.testing.assert_array_equal(tab[:20, :20], BLOSUM62[:20, :20])
+    assert (tab[20:] == -4).all() and (tab[:, 20:] == -4).all()
+    # a narrower table is indexed with codes clamped to its shape, as the
+    # plain version indexes it
+    small = np.arange(9, dtype=np.int32).reshape(3, 3)
+    np.testing.assert_array_equal(sw_table(small, -1, 5)[4, :5],
+                                  [6, 7, 8, 8, 8])
+
+
+def test_sw_wrapper_rejects_tables_it_cannot_take():
+    """A table wider than 32 codes raises on every device; the unpacked
+    variant (widths of 65536 and more, or forced) has no protein mode and
+    raises before any launch; so does an invalid code past the table."""
+    a = torch.zeros((2, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="at most 32"):
+        batched_local_align_auto(a, a, submatrix=np.zeros((33, 33), np.int32))
+    with pytest.raises(ValueError, match="at most 32"):
+        batched_local_align_auto(a.to("meta"), a.to("meta"),
+                                 submatrix=np.zeros((20, 40), np.int32))
+    with pytest.raises(ValueError, match="invalid_code"):
+        batched_local_align_auto(a, a, submatrix=BLOSUM62, invalid_code=31)
+    kw = dict(match=2, **PROTEIN)
+    with pytest.raises(ValueError, match="packed fields only"):
+        terminal._sw_cuda(a, a, packed=False, submatrix=BLOSUM62, **kw)
+    wide = torch.zeros((1, 65536), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="packed fields only"):
+        terminal._sw_cuda(wide, a[:1], submatrix=BLOSUM62, **kw)

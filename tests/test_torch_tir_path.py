@@ -210,28 +210,35 @@ def test_chunked_libjoin(runs):
         assert sum(map(len, out[True, m])) > 0
 
 
-def test_modules_stage_rejects_unported_gates(runs):
+def test_modules_stage_rejects_eahelitron(runs):
+    """The EAHelitron union (`cfg.helitron.use_eahelitron`) is not ported:
+    `modules_stage` raises rather than run the Helitron gate without it."""
     from hite_tpu_torch.pipeline.run import modules_stage
 
     _, _, got = runs
-    for te_type in ("all", "helitron", "non-ltr"):
-        cfg = got["cfg"].replace(te_type=te_type)
-        with pytest.raises(NotImplementedError):
-            modules_stage(got["genome"], got["coarse"], cfg, got["gindex"])
+    cfg = got["cfg"].replace(
+        te_type="helitron",
+        helitron=dataclasses.replace(got["cfg"].helitron,
+                                     use_eahelitron=True))
+    with pytest.raises(NotImplementedError, match="EAHelitron"):
+        modules_stage(got["genome"], got["coarse"], cfg, got["gindex"])
 
 
 def test_chip_smoke_substrate_is_the_bench_substrate():
     """chip_smoke.py's own copy of the bench planting code builds the same
-    genome and the same planted TIR copies as bench.py."""
+    genome and the same planted TIR, Helitron and SINE copies as bench.py."""
     import chip_smoke
     from bench import build_bench_genome
 
     g, truth = build_bench_genome(2_000_000)
-    codes, tir = chip_smoke.build_bench_genome(2_000_000)
+    codes, fams = chip_smoke.build_bench_genome(2_000_000)
     assert np.array_equal(codes, g.flat[: g.size])
-    want = [tuple(iv) for iv, k in zip(truth["intervals"].tolist(),
-                                       truth["classes"]) if k == "TIR"]
-    assert [c for f in sorted(tir) for c in tir[f]] == want
+    for cls in ("TIR", "Helitron", "SINE"):
+        want = [tuple(iv) for iv, k in zip(truth["intervals"].tolist(),
+                                           truth["classes"]) if k == cls]
+        got = [c for f in sorted(fams[cls]) for c in fams[cls][f]]
+        assert got == want, cls
+        assert len(fams[cls]) == (3 if cls == "TIR" else 2)
 
 
 def test_genome_layout_identical():
