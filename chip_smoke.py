@@ -19,17 +19,24 @@ Phases, each printing its own lines:
   5. on the 8 Mbp clean bench substrate (seed 7) on cuda, with the launch
      counts zeroed just before each path and read just after: the TIR
      discovery path (te_type "tir", cold), which must accept the 3 planted
-     TIR families; then this slice's main path, stages 1-2b for te_type
-     "all" (the TIR, Helitron and non-LTR modules over one shared copy
-     join, then the low-copy rescue), which must accept the 3 TIR, 2
-     Helitron and 2 SINE families and launch sw and sw_protein; each
-     kernel at that path's own shapes; the main path again, warm, under
-     the profiler (device busy share, top device ops);
-  6. cuda against the CPU, which must agree exactly: the TIR path on a
+     TIR families; then the main path, stages 1-4 of run_pipeline for the
+     default config (the TIR, Helitron and non-LTR modules over one shared
+     copy join, the low-copy rescue, the FiLTR LTR stage and library
+     assembly), which must accept the 3 TIR, 2 Helitron and 2 SINE
+     families, find each of the 4 planted LTR families as an intact
+     record, assemble a library with DNA, RC/Helitron, SINE and LTR
+     entries, and launch sw and sw_protein; each kernel at that path's own
+     shapes; the main path again, warm, under the profiler (device busy
+     share, top device ops);
+  6. both CNNs with the bundled parameters, cuda against the CPU: logits
+     within the tests' tolerances, decisions equal;
+  7. cuda against the CPU, which must agree exactly: the TIR path on a
      160 kbp genome, the modules path with the rescue on a 240 kbp genome
-     with planted TIR, Helitron and SINE copies, and the rescue of a
-     planted TIRPeps entry (which must launch sw_protein);
-  7. the kernel line, the card line, and the result line (last).
+     with planted TIR, Helitron and SINE copies, the rescue of a planted
+     TIRPeps entry (which must launch sw_protein), and stages 1-4 on a
+     120 kbp genome whose LTR family has 7 copies (a forward hook asserts
+     that the LTR CNN ran);
+  8. the kernel line, the card line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
 Detailed numbers go to smoke_out/chip_smoke.json.
@@ -467,12 +474,12 @@ def _sine_te(rng, interior):
 def build_bench_genome(length: int):
     """The bench substrate (clean): planted TIR, Helitron, SINE and LTR
     families on a seed-7 random background.  Returns (flat codes,
-    {"TIR" | "Helitron" | "SINE": {family index: [(start, end) of each
-    planted copy]}})."""
+    {"TIR" | "Helitron" | "SINE" | "LTR": {family index: [(start, end) of
+    each planted copy]}})."""
     rng = np.random.default_rng(7)
     bg = rng.integers(0, 4, length).astype(np.uint8)
     plant = make_planter(bg, rng)
-    fams = {"TIR": {}, "Helitron": {}, "SINE": {}}
+    fams = {"TIR": {}, "Helitron": {}, "SINE": {}, "LTR": {}}
 
     def record(cls, f, te, starts):
         fams[cls][f] = [(s, s + len(te)) for s in starts]
@@ -494,7 +501,7 @@ def build_bench_genome(length: int):
         t = rng.integers(0, 4, ltr_len).astype(np.uint8)
         t[0], t[1], t[-2], t[-1] = 3, 2, 1, 0
         te = np.concatenate([t, rng.integers(0, 4, 2200).astype(np.uint8), t])
-        plant(te, n, tsd=5, mut=0.01)
+        record("LTR", f, te, plant(te, n, tsd=5, mut=0.01))
     return bg, fams
 
 
@@ -530,7 +537,8 @@ def small_modules_genome():
 
 def discover_and_verify(bg, device, cfg):
     """init_mask -> tandem mask -> coarse -> gindex -> modules_stage, with
-    cfg sized to the genome.  Returns (genome, cfg, coarse, modules)."""
+    cfg sized to the genome.  Returns (genome, cfg, coarse, modules,
+    gindex)."""
     from hite_tpu_torch.genome import Genome
     from hite_tpu_torch.pipeline.coarse import CoarseParams, coarse_discover
     from hite_tpu_torch.pipeline.copies import GenomeIndex
@@ -548,7 +556,7 @@ def discover_and_verify(bg, device, cfg):
         gindex = GenomeIndex(genome, cfg.align, seg_len=params.seg_len)
     with hlog.stage_timer("pipeline.modules"):
         mods = modules_stage(genome, coarse, cfg, gindex)
-    return genome, cfg, coarse, mods
+    return genome, cfg, coarse, mods, gindex
 
 
 def tir_path(bg, device):
@@ -556,7 +564,7 @@ def tir_path(bg, device):
     module)."""
     from hite_tpu_torch.config import PipelineConfig
 
-    genome, _cfg, coarse, mods = discover_and_verify(
+    genome, _cfg, coarse, mods, _gindex = discover_and_verify(
         bg, device, PipelineConfig(te_type="tir"))
     return genome, coarse, mods["tir"]
 
@@ -565,27 +573,49 @@ def modules_path(bg, device):
     """Stages 1-2b of run_pipeline for the default te_type="all": the
     discovery, the TIR, Helitron and non-LTR gates, one shared copy join,
     each module verified, then the low-copy structural and domain rescue.
-    Returns (genome, coarse, modules, low-copy counts before the rescue,
-    rescued count)."""
+    Returns {genome, cfg, gindex, coarse, mods, low (low-copy counts
+    before the rescue), rescued, found (each module's accepted intervals
+    before the rescue, which run_pipeline masks before stage 3)}."""
     from hite_tpu_torch.config import PipelineConfig
     from hite_tpu_torch.pipeline.run import _rescue_low_copy
 
-    genome, cfg, coarse, mods = discover_and_verify(bg, device,
-                                                    PipelineConfig())
+    genome, cfg, coarse, mods, gindex = discover_and_verify(
+        bg, device, PipelineConfig())
     assert cfg.te_type == "all" and list(mods) == ["tir", "helitron",
                                                    "non_ltr"]
     low = {k: len(m.low_copy) for k, m in mods.items()}
+    found = [m.accepted.intervals for m in mods.values()]
     with hlog.stage_timer("pipeline.low_copy_rescue"):
         rescued = _rescue_low_copy(genome, cfg, **mods)
-    return genome, coarse, mods, low, rescued
+    return dict(genome=genome, cfg=cfg, gindex=gindex, coarse=coarse,
+                mods=mods, low=low, rescued=rescued, found=found)
+
+
+def main_path(bg, device):
+    """Stages 1-4 of run_pipeline for the default config: `modules_path`,
+    then the FiLTR LTR stage on the genome masked with the families found
+    (`run.ltr_stage`) and library assembly (`run.library_stage`).  Returns
+    modules_path's dict with `ltr` and `libs` added."""
+    from hite_tpu_torch.pipeline.coarse import CoarseParams
+    from hite_tpu_torch.pipeline.run import library_stage, ltr_stage
+
+    run = modules_path(bg, device)
+    with hlog.stage_timer("pipeline.ltr"):
+        run["ltr"] = ltr_stage(run["genome"], run["cfg"], run["gindex"],
+                               run["found"], seg_len=CoarseParams().seg_len)
+    with hlog.stage_timer("pipeline.library"):
+        run["libs"] = library_stage(run["genome"], run["cfg"],
+                                    ltr=run["ltr"], **run["mods"])
+    return run
 
 
 def same_modules(a, b):
     """Two modules-path results agree exactly: coarse candidates, and per
     module the accepted intervals and their labels, consensus, copy
     counts and low-copy set, and the rescued count."""
-    (_ga, ca, ma, la, ra), (_gb, cb, mb, lb, rb) = a, b
-    assert np.array_equal(ca, cb) and la == lb and ra == rb
+    assert np.array_equal(a["coarse"], b["coarse"])
+    assert a["low"] == b["low"] and a["rescued"] == b["rescued"]
+    ma, mb = a["mods"], b["mods"]
     assert list(ma) == list(mb)
     for k in ma:
         x, y = ma[k], mb[k]
@@ -598,6 +628,28 @@ def same_modules(a, b):
         assert all(np.array_equal(p, q)
                    for p, q in zip(x.consensus, y.consensus)), k
         assert np.array_equal(x.low_copy.intervals, y.low_copy.intervals), k
+
+
+def same_stages_3_4(a, b):
+    """Two main-path results agree exactly in stages 3-4: every field of
+    every LTR record, the cross-class pools and every library dict."""
+    import dataclasses
+
+    assert [dataclasses.asdict(r) for r in a["ltr"].records] == \
+        [dataclasses.asdict(r) for r in b["ltr"].records]
+    pa, pb = a["ltr"].cross_class, b["ltr"].cross_class
+    assert list(pa) == list(pb)
+    assert all([v.tolist() for v in pa[k]] == [v.tolist() for v in pb[k]]
+               for k in pa)
+    assert list(a["libs"]) == list(b["libs"])
+    for key, lib in a["libs"].items():
+        assert list(lib) == list(b["libs"][key]), key
+        assert all(np.array_equal(lib[n], b["libs"][key][n]) for n in lib), key
+
+
+def library_classes(libs):
+    """The class (the label before "/") of each merged library entry."""
+    return sorted({n.partition("#")[2].split("/")[0] for n in libs["merged"]})
 
 
 def found_families(truth, accepted):
@@ -645,6 +697,121 @@ def rescue_scenario(device):
     n = _rescue_low_copy(genome, PipelineConfig(), tir=mod)
     return (n, mod.accepted.intervals.tolist(),
             mod.low_copy.intervals.tolist())
+
+
+# the CNNs' logits, cuda against the CPU, within the tolerances the tests
+# hold them to against flax (both sides bf16 arithmetic, rounded at
+# different points): decisions must be equal
+LTR_CNN_TOL = 0.08
+SF_CNN_TOL = 0.02
+
+
+def check_cnns() -> dict:
+    """Both CNNs with the bundled parameters on seeded frame-like images
+    and feature vectors, on cuda and on the CPU: logits within the
+    tolerance, the same argmax and p >= 0.5 decisions.  Also each one's
+    forward time on the card (CUDA events)."""
+    from hite_tpu_torch.models import bundled_model_path
+    from hite_tpu_torch.models.classifier import SuperfamilyCNN
+    from hite_tpu_torch.models.convert import load_model
+    from hite_tpu_torch.models.features import FEATURE_DIM
+    from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
+
+    rng = np.random.default_rng(41)
+    M = rng.integers(0, 6, (16, 100, 400))
+    img = np.stack([M >= 4, rng.random(M.shape) < 0.5,
+                    np.where(M < 4, (M + 1) / 4, 0)], -1).astype(np.float32)
+    f = rng.random((16, 512)).astype(np.float32)
+    f /= f.sum(1, keepdims=True) / 2
+    km = f.reshape(16, 2, 16, 16).transpose(0, 2, 3, 1).copy()
+    X = rng.random((64, FEATURE_DIM)).astype(np.float32)
+    X[:, :1024] /= 512
+    X[:, 1024:1664] /= 30
+    out = {}
+    for cls, name, inputs, tol in (
+            (LTRFilterCNN, "ltr_filter_cnn.pkl", (img, km), LTR_CNN_TOL),
+            (SuperfamilyCNN, "superfamily_cnn.pkl", (X,), SF_CNN_TOL)):
+        logits, ms = {}, None
+        for dev in ("cuda", "cpu"):
+            model = load_model(cls, bundled_model_path(name), dev)
+            xs = [torch.from_numpy(x).to(dev) for x in inputs]
+            with torch.no_grad():
+                logits[dev] = model(*xs).cpu().numpy()
+                if dev == "cuda":
+                    ms = cuda_ms(lambda: model(*xs), 10)
+        g, c = logits["cuda"], logits["cpu"]
+        err = float(np.abs(g - c).max())
+        prob = lambda z: np.exp(z[:, 1] - z.max(1)) / np.exp(
+            z - z.max(1, keepdims=True)).sum(1)
+        same = (np.array_equal(g.argmax(1), c.argmax(1))
+                and (cls is not LTRFilterCNN
+                     or np.array_equal(prob(g) >= 0.5, prob(c) >= 0.5)))
+        print(f"cnn {cls.__name__} (bundled, batch {len(inputs[0])}): cuda "
+              f"vs cpu max |logit diff| {err:.5f} (tolerance {tol}); "
+              f"decisions {'equal' if same else 'DIFFER'}; forward "
+              f"{ms:.3f} ms on the card")
+        assert err <= tol and same, (cls.__name__, err)
+        out[cls.__name__] = dict(max_abs_err=err, tol=tol, ms=ms)
+    return out
+
+
+def ltr6_genome(n_copies=7, length=120_000, seed=61):
+    """A random genome with one LTR family (300 bp TG...CA LTRs, 2 kbp
+    interior, 1% mutations, 5 bp TSDs) planted `n_copies` times, so that
+    its records have more than 5 copies and reach the LTR CNN; the tests
+    run the JAX package against the port on it.  Returns (codes,
+    [(start, end)] of each copy)."""
+    rng = np.random.default_rng(seed)
+    bg = rng.integers(0, 4, length).astype(np.uint8)
+    lt = rng.integers(0, 4, 300).astype(np.uint8)
+    lt[0], lt[1], lt[-2], lt[-1] = 3, 2, 1, 0
+    te = np.concatenate([lt, rng.integers(0, 4, 2000).astype(np.uint8), lt])
+    starts = [5_000 + 15_000 * i + int(rng.integers(0, 3000))
+              for i in range(n_copies)]
+    for pos in starts:
+        copy = te.copy()
+        muts = rng.random(len(copy)) < 0.01
+        copy[muts] = (copy[muts] + rng.integers(1, 4, muts.sum())) % 4
+        tsd = rng.integers(0, 4, 5).astype(np.uint8)
+        bg[pos - 5: pos] = tsd
+        bg[pos + len(copy): pos + len(copy) + 5] = tsd
+        bg[pos: pos + len(copy)] = copy
+    return bg, [(s, s + len(te)) for s in starts]
+
+
+def check_ltr6() -> dict:
+    """Stages 1-4 on `ltr6_genome` on cuda and on the CPU: equal in every
+    stage; a forward hook (here, not in the package) counts the LTR CNN's
+    forwards, which must be at least one on each device."""
+    from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
+
+    bg, truth = ltr6_genome()
+    forwards = {"n": 0}
+
+    def hook(module, _inp, _out):
+        forwards["n"] += isinstance(module, LTRFilterCNN)
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    runs, cnn = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            forwards["n"] = 0
+            runs[dev] = main_path(bg, dev)
+            cnn[dev] = forwards["n"]
+    finally:
+        handle.remove()
+    same_modules(runs["cuda"], runs["cpu"])
+    same_stages_3_4(runs["cuda"], runs["cpu"])
+    recs = runs["cuda"]["ltr"].records
+    found = found_families({0: truth}, [(r.start, r.end) for r in recs])
+    print(f"ltr6 genome ({len(bg)} bp, 7 LTR copies), stages 1-4: cuda == "
+          f"cpu; LTR CNN forwards cuda {cnn['cuda']}, cpu {cnn['cpu']}; "
+          f"records {[(r.start, r.end, r.copy_count, r.superfamily) for r in recs]}; "
+          f"library {sorted(runs['cuda']['libs']['merged'])}")
+    assert cnn["cuda"] >= 1 and cnn["cpu"] >= 1, "the LTR CNN never ran"
+    assert all(found), "the planted LTR family was not found"
+    return dict(cnn_forwards=cnn, records=len(recs),
+                library=sorted(runs["cuda"]["libs"]["merged"]))
 
 
 def main() -> int:
@@ -812,15 +979,16 @@ def main() -> int:
                               counters=dict(hlog.COUNTERS))
     del genome
 
-    # ---- this slice's main path: stages 1-2b for te_type="all" at 8 Mbp
-    print(f"modules path: bench substrate {length} bp, seed 7, te_type all")
+    # ---- the main path: stages 1-4 (modules, rescue, LTR, library) at 8 Mbp
+    print(f"main path: bench substrate {length} bp, seed 7, default config "
+          "(te_type all, FiLTR LTR, neural labels), stages 1-4")
     hlog.STAGE_TIMES.clear()
     hlog.COUNTERS.clear()
     native_rt.CALLS["fmea_chain"] = 0
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    genome, coarse, mods, low, rescued = modules_path(bg, "cuda")
+    run = main_path(bg, "cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -828,40 +996,60 @@ def main() -> int:
     chain_calls = native_rt.CALLS["fmea_chain"]
     stages = dict(hlog.STAGE_TIMES)
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"modules path stage {k}: {v:.3f} s")
-    assert genome.device.type == "cuda"
+        print(f"main path stage {k}: {v:.3f} s")
+    assert run["genome"].device.type == "cuda"
     fams = {"tir": "TIR", "helitron": "Helitron", "non_ltr": "SINE"}
     mod_report, all_found = {}, {}
-    for k, m in mods.items():
+    for k, m in run["mods"].items():
         accepted = m.accepted.intervals
         labels = m.accepted.meta.get("te_type")
         found = found_families(truth[fams[k]], accepted)
         all_found[fams[k]] = found
-        print(f"modules path {k}: accepted {len(accepted)} families, copy "
-              f"counts {m.copy_counts}; low-copy {low[k]} before the "
+        print(f"main path {k}: accepted {len(accepted)} families, copy "
+              f"counts {m.copy_counts}; low-copy {run['low'][k]} before the "
               f"rescue, {len(m.low_copy)} after; planted {fams[k]} "
               f"families accepted {found}"
               + (f"; labels {sorted(set(labels.tolist()))}"
                  if labels is not None else ""))
         mod_report[k] = dict(accepted=accepted.tolist(),
-                             copy_counts=m.copy_counts, low_copy=low[k],
+                             copy_counts=m.copy_counts, low_copy=run["low"][k],
                              low_copy_after=len(m.low_copy), found=found)
-    print(f"modules path: wall {wall:.2f} s; coarse candidates "
-          f"{len(coarse)}; rescued {rescued}; sw launches {launches['sw']}; "
-          f"sw_protein launches {launches['sw_protein']} at "
-          f"{shapes['sw_protein']}; native chain calls {chain_calls}")
+    records = run["ltr"].records
+    for r in records:
+        print(f"main path LTR record {r.start}-{r.end} LTRs "
+              f"{r.lltr_end - r.lltr_start}/{r.rltr_end - r.rltr_start} bp "
+              f"identity {r.identity:.4f} TSD {r.tsd_len} copies "
+              f"{r.copy_count} {r.superfamily}")
+    all_found["LTR"] = found_families(truth["LTR"],
+                                      [(r.start, r.end) for r in records])
+    pools = {k: len(v) for k, v in run["ltr"].cross_class.items()}
+    classes = library_classes(run["libs"])
+    print(f"main path: LTR records {len(records)}, planted LTR families "
+          f"found {all_found['LTR']}; cross-class pools {pools}; library "
+          f"{len(run['libs']['merged'])} merged entries, classes {classes}")
+    print(f"main path: wall {wall:.2f} s; coarse candidates "
+          f"{len(run['coarse'])}; rescued {run['rescued']}; sw launches "
+          f"{launches['sw']} at {shapes['sw']}; sw_protein launches "
+          f"{launches['sw_protein']} at {shapes['sw_protein']}; native "
+          f"chain calls {chain_calls}")
     assert all(all(v) for v in all_found.values()), \
-        f"a planted family was not accepted: {all_found}"
-    assert launches["sw"] > 0, "the modules path never launched sw"
+        f"a planted family was not found: {all_found}"
+    assert {"DNA", "RC", "SINE", "LTR"} <= set(classes), classes
+    assert launches["sw"] > 0, "the main path never launched sw"
     assert launches["sw_protein"] > 0, \
-        "the modules path never launched the protein mode"
-    report["modules_path"] = dict(
-        bp=length, wall_s=wall, stages=stages, coarse=len(coarse),
-        modules=mod_report, rescued=rescued, launches=launches,
+        "the main path never launched the protein mode"
+    report["main_path"] = dict(
+        bp=length, wall_s=wall, stages=stages, coarse=len(run["coarse"]),
+        modules=mod_report, rescued=run["rescued"],
+        ltr_records=[(r.start, r.end, r.lltr_end, r.rltr_start,
+                      r.identity, r.tsd_len, r.copy_count, r.superfamily)
+                     for r in records],
+        cross_class=pools, library=sorted(run["libs"]["merged"]),
+        launches=launches,
         launch_shapes={k: {str(s): n for s, n in v.items()}
                        for k, v in shapes.items()},
         chain_calls=chain_calls, counters=dict(hlog.COUNTERS))
-    del genome, mods
+    del run
 
     # each kernel at the main path's own shapes (these launches are not
     # counted): sw with nucleotide inputs, sw_protein with amino acids
@@ -874,17 +1062,18 @@ def main() -> int:
             else:
                 a, b = sw_inputs(B, La, Lb, 0.0, seed=B + La)
             main_rows[kname].append(dict(
-                check_sw(f"main_B{B}", a, b, 50, sass, protein=protein),
+                check_sw(f"main_B{B}_{La}x{Lb}", a, b, 50, sass,
+                         protein=protein),
                 launches=n))
     report["sw_main_shapes"] = main_rows
 
-    # ---- the modules path again, warm, under the profiler: device busy
+    # ---- the main path again, warm, under the profiler: device busy
     hlog.STAGE_TIMES.clear()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        modules_path(bg, "cuda")
+        main_path(bg, "cuda")
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
     # device-side kernel events only (operator rows repeat their kernels'
@@ -895,26 +1084,30 @@ def main() -> int:
     top = sorted(avg, key=lambda e: -e.self_device_time_total)[:10]
     warm_stages = dict(hlog.STAGE_TIMES)
     for k, v in sorted(warm_stages.items(), key=lambda kv: -kv[1]):
-        print(f"modules path warm stage {k}: {v:.3f} s")
+        print(f"main path warm stage {k}: {v:.3f} s")
     if busy_us > 0:
-        print(f"modules path warm (profiled): wall {warm:.2f} s; device "
+        print(f"main path warm (profiled): wall {warm:.2f} s; device "
               f"busy {busy_us / 1e6:.3f} s = {busy_us / 1e4 / warm:.1f}% of "
               "wall")
         for e in top:
             print(f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
                   f"{e.count:7d} calls  {e.key[:70]}")
     else:
-        print(f"modules path warm (profiled): wall {warm:.2f} s; device "
+        print(f"main path warm (profiled): wall {warm:.2f} s; device "
               "busy not measured (the profiler saw no device time)")
-    report["modules_path_warm"] = dict(
+    report["main_path_warm"] = dict(
         wall_s=warm, device_busy_s=busy_us / 1e6, stages=warm_stages,
         top_device_ops=[(e.key, e.self_device_time_total / 1e3, e.count)
                         for e in top])
     del prof, bg
 
+    # ---- both CNNs with the bundled parameters, cuda against the CPU
+    report["cnn"] = check_cnns()
+
     # ---- device vs CPU on small genomes (the CPU path is held against the
     # JAX package by the tests): the TIR path, the modules path with the
-    # rescue, and the rescue of a planted TIRPeps entry
+    # rescue, the rescue of a planted TIRPeps entry, and stages 1-4 on a
+    # genome whose LTR family has 7 copies (the LTR CNN confirm runs)
     small = small_genome()
     _g, c_gpu, r_gpu = tir_path(small, "cuda")
     _g, c_cpu, r_cpu = tir_path(small, "cpu")
@@ -930,12 +1123,12 @@ def main() -> int:
     on_gpu = modules_path(small, "cuda")
     on_cpu = modules_path(small, "cpu")
     same_modules(on_gpu, on_cpu)
-    assert all(len(m.accepted) >= 1 for m in on_gpu[2].values())
+    assert all(len(m.accepted) >= 1 for m in on_gpu["mods"].values())
     print(f"small modules path ({len(small)} bp): cuda == cpu; "
-          f"{len(on_gpu[1])} candidates; " + "; ".join(
+          f"{len(on_gpu['coarse'])} candidates; " + "; ".join(
               f"{k} accepted {m.accepted.intervals.tolist()} copies "
-              f"{m.copy_counts}" for k, m in on_gpu[2].items())
-          + f"; low-copy {on_gpu[3]}, rescued {on_gpu[4]}")
+              f"{m.copy_counts}" for k, m in on_gpu["mods"].items())
+          + f"; low-copy {on_gpu['low']}, rescued {on_gpu['rescued']}")
     kernels.reset_launches()
     res = {dev: rescue_scenario(dev) for dev in ("cuda", "cpu")}
     assert kernels.LAUNCHES["sw_protein"] > 0, \
@@ -944,6 +1137,7 @@ def main() -> int:
     print(f"planted-domain rescue (20 kbp, one TIRPeps entry): cuda == cpu; "
           f"rescued {res['cuda'][0]} of 2 low-copy candidates, "
           f"{kernels.LAUNCHES['sw_protein']} sw_protein launches")
+    report["ltr6"] = check_ltr6()
 
     # ---- kernel line: main-path-weighted time of each kernel (device time
     # from the profiler where it saw the kernel, else the event time) and

@@ -1,36 +1,44 @@
 """Pipeline stages ported so far (counterpart of the JAX `pipeline/run.py`).
 
-The port runs stages 1-2b of `run_pipeline`: discovery, the three
-copy-verified modules (TIR, Helitron, non-LTR) and the low-copy rescue:
+The port runs stages 1-4 of `run_pipeline`: discovery, the three
+copy-verified modules (TIR, Helitron, non-LTR), the low-copy rescue, the
+FiLTR LTR stage and library assembly:
 
     genome.init_mask(); _mask_tandem_regions(genome)      # stage 1a
     coarse = coarse_discover(genome, cfg.align, params)   # stage 1b
     gindex = GenomeIndex(genome, cfg.align, params.seg_len)
     modules = modules_stage(genome, coarse, cfg, gindex)  # stage 2
-    _rescue_low_copy(genome, cfg, tir=modules.get("tir"),  # stage 2b
-                     helitron=modules.get("helitron"),
-                     non_ltr=modules.get("non_ltr"))
+    found = [m.accepted.intervals for m in modules.values()]
+    _rescue_low_copy(genome, cfg, **modules)              # stage 2b
+    ltr = ltr_stage(genome, cfg, gindex, found,           # stage 3
+                    seg_len=params.seg_len)
+    libs = library_stage(genome, cfg, ltr=ltr, **modules)  # stage 4
 
-with `cfg = cfg.with_genome_size(genome.size)`.  `run_pipeline` and the
-CLI arrive with the library slice (ROADMAP.md).
+with `cfg = cfg.with_genome_size(genome.size)`.  As in the JAX package,
+stage 3 masks the families accepted BEFORE the rescue, and runs when
+`cfg.te_type` is "all" or "ltr".  `run_pipeline`, the output writers and
+the CLI arrive with the annotation slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from hite_tpu_torch.config import PipelineConfig
 from hite_tpu_torch.genome import Genome
+from hite_tpu_torch.io.fasta import read_fasta
 from hite_tpu_torch.ops.tandem import long_tandem_mask, tandem_mask
 from hite_tpu_torch.pipeline.candidates import CandidateSet
 from hite_tpu_torch.pipeline.copies import CopyFinder, GenomeIndex
 from hite_tpu_torch.pipeline.helitron import (
     gate_helitron, run_helitron_detection,
 )
+from hite_tpu_torch.pipeline.library import build_library
+from hite_tpu_torch.pipeline.ltr import LTRResult
 from hite_tpu_torch.pipeline.non_ltr import (
     gate_non_ltr, run_non_ltr_detection,
 )
@@ -225,3 +233,65 @@ def modules_stage(genome: Genome, coarse: np.ndarray, cfg: PipelineConfig,
     return {k: runners[k](genome, coarse, cfg, gindex, gated=g,
                           plan=plans.get(k), rep_copy_sets=per_mod.get(k))
             for k, g in gates.items()}
+
+
+def ltr_stage(genome: Genome, cfg: PipelineConfig, gindex: GenomeIndex,
+              found_intervals: Sequence[np.ndarray],
+              seg_len: int = 131_072) -> LTRResult:
+    """Stage 3, the FiLTR LTR path, on the genome masked with every family
+    found so far (reference judge_LTR_transposons.py:111): self-join
+    candidates, SW terminal refinement, the precision pre-filters, the
+    frame rule with the LTR CNN (`cfg.ltr.use_deep_cnn`), the cross-class
+    filters, and the superfamily CNN (`cfg.classify.use_neural`).  The
+    body of the JAX `run_pipeline` closure `_ltr_stage` with the masking
+    before it.  The legacy path (`cfg.ltr.use_filtr=False`) is not ported
+    and raises."""
+    from hite_tpu_torch.models import bundled_model_path
+    from hite_tpu_torch.models.convert import load_model
+    from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
+    from hite_tpu_torch.pipeline.ltr import (
+        classify_ltr_records, run_ltr_detection,
+    )
+    from hite_tpu_torch.pipeline.ltr_deep import (
+        cross_class_filter, deep_filter_records,
+    )
+
+    if not cfg.ltr.use_filtr:
+        raise NotImplementedError(
+            "the legacy LTR path (use_filtr=False, --use_FiLTR 0) is not "
+            "ported yet (ROADMAP item 16.1)")
+    masked_bp = genome.mask_intervals(
+        (int(s), int(e)) for arr in found_intervals for s, e in arr)
+    logger.info("pipeline: masked %d bp before LTR stage", masked_bp)
+    res = run_ltr_detection(genome, cfg, gindex, seg_len=seg_len)
+    cnn_model = None
+    if cfg.ltr.use_deep_cnn:
+        path = cfg.ltr.deep_model_path or bundled_model_path(
+            "ltr_filter_cnn.pkl")
+        if path and os.path.exists(path):
+            cnn_model = load_model(LTRFilterCNN, path, genome.device)
+    kept = deep_filter_records(genome, res.records, cfg, gindex,
+                               cnn_model=cnn_model)
+    kept, pools = cross_class_filter(genome, kept, cfg, gindex)
+    res = LTRResult(records=kept, cross_class=pools)
+    if cfg.classify.use_neural and res.records:
+        with stage_timer("ltr.classify"):
+            classify_ltr_records(genome, res.records, cfg)
+    return res
+
+
+def library_stage(genome: Genome, cfg: PipelineConfig, *,
+                  tir: Optional[ModuleResult] = None,
+                  helitron: Optional[ModuleResult] = None,
+                  non_ltr: Optional[ModuleResult] = None,
+                  ltr: Optional[LTRResult] = None,
+                  other: Optional[Dict[str, np.ndarray]] = None
+                  ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Stage 4: `build_library` over the modules' families, the LTR result
+    and the curated library `cfg.curated_lib` when that file exists.
+    `other` is stage 0b's curated-homology library (not ported yet)."""
+    curated = read_fasta(cfg.curated_lib) if (
+        cfg.curated_lib and os.path.exists(cfg.curated_lib)) else None
+    return build_library(genome, cfg, tir=tir, helitron=helitron,
+                         non_ltr=non_ltr, ltr=ltr, other=other,
+                         curated=curated)

@@ -32,6 +32,11 @@ MODULES = [
     "hite_tpu_torch.pipeline.verify", "hite_tpu_torch.pipeline.tir",
     "hite_tpu_torch.pipeline.domain", "hite_tpu_torch.pipeline.helitron",
     "hite_tpu_torch.pipeline.non_ltr", "hite_tpu_torch.pipeline.run",
+    "hite_tpu_torch.models", "hite_tpu_torch.models.convert",
+    "hite_tpu_torch.models.features", "hite_tpu_torch.models.classifier",
+    "hite_tpu_torch.models.ltr_filter", "hite_tpu_torch.models.trainer",
+    "hite_tpu_torch.pipeline.ltr", "hite_tpu_torch.pipeline.ltr_deep",
+    "hite_tpu_torch.pipeline.libcluster", "hite_tpu_torch.pipeline.library",
 ]
 
 
@@ -92,6 +97,32 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError):
         rt_motif_present([np.zeros(300, np.uint8)])
     assert DomainScanner(lib, device="cpu").index.codes.device.type == "cpu"
+
+    from hite_tpu_torch.config import AlignConfig, PipelineConfig
+    from hite_tpu_torch.models import bundled_model_path
+    from hite_tpu_torch.models.classifier import SuperfamilyCNN
+    from hite_tpu_torch.models.convert import load_model
+    from hite_tpu_torch.models.trainer import build_features
+    from hite_tpu_torch.pipeline.libcluster import (
+        cluster_seqs, subcluster_members,
+    )
+    from hite_tpu_torch.pipeline.library import library_feature_evidence
+    from hite_tpu_torch.pipeline.ltr_deep import cnn_inputs
+
+    seq = [np.zeros(300, np.uint8), np.ones(300, np.uint8)]
+    frame = np.zeros((4, 400), np.uint8)
+    path = bundled_model_path("superfamily_cnn.pkl")
+    calls = [lambda d: build_features(seq, device=d),
+             lambda d: cluster_seqs(seq, AlignConfig(), device=d),
+             lambda d: subcluster_members(seq, device=d),
+             lambda d: library_feature_evidence(seq, PipelineConfig(),
+                                                device=d),
+             lambda d: load_model(SuperfamilyCNN, path, d),
+             lambda d: cnn_inputs(frame, d)]
+    for call in calls:
+        with pytest.raises(RuntimeError):
+            call(None)
+        call("cpu")
 
 
 def test_kernel_wrapper_needs_cuda_tensors_off_cpu():

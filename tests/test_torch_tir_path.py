@@ -226,19 +226,22 @@ def test_modules_stage_rejects_eahelitron(runs):
 
 def test_chip_smoke_substrate_is_the_bench_substrate():
     """chip_smoke.py's own copy of the bench planting code builds the same
-    genome and the same planted TIR, Helitron and SINE copies as bench.py."""
+    genome and the same planted TIR, Helitron, SINE and LTR copies as
+    bench.py."""
     import chip_smoke
     from bench import build_bench_genome
 
     g, truth = build_bench_genome(2_000_000)
     codes, fams = chip_smoke.build_bench_genome(2_000_000)
     assert np.array_equal(codes, g.flat[: g.size])
-    for cls in ("TIR", "Helitron", "SINE"):
+    n_fams = {"TIR": 3, "Helitron": 2, "SINE": 2, "LTR": 4}
+    assert set(fams) == set(n_fams)
+    for cls, n in n_fams.items():
         want = [tuple(iv) for iv, k in zip(truth["intervals"].tolist(),
                                            truth["classes"]) if k == cls]
         got = [c for f in sorted(fams[cls]) for c in fams[cls][f]]
         assert got == want, cls
-        assert len(fams[cls]) == (3 if cls == "TIR" else 2)
+        assert len(fams[cls]) == n
 
 
 def test_genome_layout_identical():
