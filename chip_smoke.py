@@ -19,27 +19,38 @@ Phases, each printing its own lines:
   5. on the 8 Mbp clean bench substrate (seed 7) on cuda, with the launch
      counts zeroed just before each path and read just after: the TIR
      discovery path (te_type "tir", cold), which must accept the 3 planted
-     TIR families; then the main path, stages 1-4 of run_pipeline for the
-     default config (the TIR, Helitron and non-LTR modules over one shared
-     copy join, the low-copy rescue, the FiLTR LTR stage and library
-     assembly), which must accept the 3 TIR, 2 Helitron and 2 SINE
-     families, find each of the 4 planted LTR families as an intact
+     TIR families; then the main path, the port's own run_pipeline for the
+     default config with annotate=True, stages 1-5 (the TIR, Helitron and
+     non-LTR modules over one shared copy join, the low-copy rescue, the
+     FiLTR LTR stage, library assembly, the output writers, annotation with
+     the SW identity rescore), which must accept the 3 TIR, 2 Helitron and
+     2 SINE families, find each of the 4 planted LTR families as an intact
      record, assemble a library with DNA, RC/Helitron, SINE and LTR
-     entries, and launch sw and sw_protein; each kernel at that path's own
-     shapes; the main path again, warm, under the profiler (device busy
-     share, top device ops);
+     entries, write every output file, annotate the planted copies at
+     base-level F1 >= 0.90, score BM_RM2 present 11 of 11 against the
+     planted families, and launch sw and sw_protein; each of
+     annotate.rescore's SW launches on its own inputs, and each kernel at
+     that path's shapes; the main path again, warm, under the profiler
+     (device busy share, top device ops);
   6. both CNNs with the bundled parameters, cuda against the CPU: logits
      within the tests' tolerances, decisions equal;
   7. cuda against the CPU, which must agree exactly: the TIR path on a
      160 kbp genome, the modules path with the rescue on a 240 kbp genome
      with planted TIR, Helitron and SINE copies, the rescue of a planted
-     TIRPeps entry (which must launch sw_protein), and stages 1-4 on a
-     120 kbp genome whose LTR family has 7 copies (a forward hook asserts
-     that the LTR CNN ran);
-  8. the kernel line, the card line, and the result line (last).
+     TIRPeps entry (which must launch sw_protein), run_pipeline with
+     annotation on a 120 kbp genome whose LTR family has 7 copies (every
+     output file byte-equal; a forward hook asserts that the LTR CNN ran),
+     and the legacy LTR stage (use_filtr=False) on a 3-copy genome (on the
+     7-copy genome on cuda alone, which must find the family);
+  8. the CLI: python -m hite_tpu_torch in a subprocess on the 160 kbp
+     genome as FASTA, with no device argument, equal to an in-process
+     run_pipeline; then twice with --recover 1, the second loading every
+     stage from its snapshot and writing the same files;
+  9. the kernel line, the card line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
-Detailed numbers go to smoke_out/chip_smoke.json.
+Detailed numbers go to smoke_out/chip_smoke.json, the runs' output files
+to smoke_out/.
 """
 
 from __future__ import annotations
@@ -475,14 +486,17 @@ def build_bench_genome(length: int):
     """The bench substrate (clean): planted TIR, Helitron, SINE and LTR
     families on a seed-7 random background.  Returns (flat codes,
     {"TIR" | "Helitron" | "SINE" | "LTR": {family index: [(start, end) of
-    each planted copy]}})."""
+    each planted copy]}}, {bench family name: unmutated element codes})."""
     rng = np.random.default_rng(7)
     bg = rng.integers(0, 4, length).astype(np.uint8)
     plant = make_planter(bg, rng)
     fams = {"TIR": {}, "Helitron": {}, "SINE": {}, "LTR": {}}
+    seqs = {}
+    prefix = {"TIR": "TIR", "Helitron": "HEL", "SINE": "SINE", "LTR": "LTR"}
 
     def record(cls, f, te, starts):
         fams[cls][f] = [(s, s + len(te)) for s in starts]
+        seqs[f"{prefix[cls]}_{f}"] = te
 
     for f in range(3):
         n, interior = ((20, 460), (15, 900), (10, 1400))[f % 3]
@@ -502,7 +516,7 @@ def build_bench_genome(length: int):
         t[0], t[1], t[-2], t[-1] = 3, 2, 1, 0
         te = np.concatenate([t, rng.integers(0, 4, 2200).astype(np.uint8), t])
         record("LTR", f, te, plant(te, n, tsd=5, mut=0.01))
-    return bg, fams
+    return bg, fams, seqs
 
 
 def small_genome():
@@ -574,8 +588,7 @@ def modules_path(bg, device):
     discovery, the TIR, Helitron and non-LTR gates, one shared copy join,
     each module verified, then the low-copy structural and domain rescue.
     Returns {genome, cfg, gindex, coarse, mods, low (low-copy counts
-    before the rescue), rescued, found (each module's accepted intervals
-    before the rescue, which run_pipeline masks before stage 3)}."""
+    before the rescue), rescued}."""
     from hite_tpu_torch.config import PipelineConfig
     from hite_tpu_torch.pipeline.run import _rescue_low_copy
 
@@ -584,29 +597,212 @@ def modules_path(bg, device):
     assert cfg.te_type == "all" and list(mods) == ["tir", "helitron",
                                                    "non_ltr"]
     low = {k: len(m.low_copy) for k, m in mods.items()}
-    found = [m.accepted.intervals for m in mods.values()]
     with hlog.stage_timer("pipeline.low_copy_rescue"):
         rescued = _rescue_low_copy(genome, cfg, **mods)
     return dict(genome=genome, cfg=cfg, gindex=gindex, coarse=coarse,
-                mods=mods, low=low, rescued=rescued, found=found)
+                mods=mods, low=low, rescued=rescued)
 
 
-def main_path(bg, device):
-    """Stages 1-4 of run_pipeline for the default config: `modules_path`,
-    then the FiLTR LTR stage on the genome masked with the families found
-    (`run.ltr_stage`) and library assembly (`run.library_stage`).  Returns
-    modules_path's dict with `ltr` and `libs` added."""
+def pipeline_run(bg, device, out_dir, **cfg_kw):
+    """The port's own `run_pipeline` on one contig of codes, default config
+    with `cfg_kw` (stages 0-7 as the config asks, the writers under
+    `out_dir`), default CoarseParams.  Returns (genome, RunResult)."""
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.genome import Genome
     from hite_tpu_torch.pipeline.coarse import CoarseParams
-    from hite_tpu_torch.pipeline.run import library_stage, ltr_stage
+    from hite_tpu_torch.pipeline.run import run_pipeline
 
-    run = modules_path(bg, device)
-    with hlog.stage_timer("pipeline.ltr"):
-        run["ltr"] = ltr_stage(run["genome"], run["cfg"], run["gindex"],
-                               run["found"], seg_len=CoarseParams().seg_len)
-    with hlog.stage_timer("pipeline.library"):
-        run["libs"] = library_stage(run["genome"], run["cfg"],
-                                    ltr=run["ltr"], **run["mods"])
-    return run
+    genome = Genome.from_dict({"chr1": bg}, device=device)
+    if out_dir:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = run_pipeline(genome, PipelineConfig(**cfg_kw), out_dir=out_dir,
+                       coarse_params=CoarseParams())
+    return genome, res
+
+
+# every file run_pipeline writes for the default config with annotation
+MAIN_FILES = ["confident_tir.fa", "confident_helitron.fa",
+              "confident_non_ltr.fa", "confident_other.fa",
+              "confident_ltr_cut.fa.cons", "confident_TE.cons.fa",
+              "low_confident_TE.fa", "intact_LTR.list",
+              "ltr_insert_time.tsv", "genome.gff", "genome.out",
+              "genome.tbl", "genome.full_length.gff", "stage_times.json"]
+
+
+def same_files(dir_a, dir_b, names=None):
+    """Every output file (all but stage_times.json and the snapshots, or
+    `names`) byte-equal in two directories; returns the names compared."""
+    import filecmp
+
+    listed = [sorted(f for f in os.listdir(d) if f != "stage_times.json"
+                     and not f.startswith(".")) for d in (dir_a, dir_b)]
+    assert names is not None or listed[0] == listed[1], listed
+    names = names or listed[0]
+    bad = [f for f in names if not filecmp.cmp(
+        os.path.join(dir_a, f), os.path.join(dir_b, f), shallow=False)]
+    assert not bad, f"{dir_a} and {dir_b} differ in {bad}"
+    return names
+
+
+def annotation_accuracy(genome, hits, fams):
+    """Base-level sensitivity, precision and F1 of the annotation against
+    the planted copies, and per-class sensitivity (bench.py's
+    accuracy_metrics, the port's own copy)."""
+    from hite_tpu_torch.utils import intervals as iv
+
+    start = {n: int(s) for n, s in zip(genome.names, genome.starts)}
+    test_iv = iv.merge(np.array([(start[h.contig] + h.start - 1,
+                                  start[h.contig] + h.end) for h in hits],
+                                np.int64).reshape(-1, 2))
+    spans = {cls: [c for f in sorted(fs) for c in fs[f]]
+             for cls, fs in fams.items()}
+    gold_iv = iv.merge(np.array([c for v in spans.values() for c in v],
+                                np.int64))
+    gold_bp, test_bp = iv.total_length(gold_iv), iv.total_length(test_iv)
+    cov = iv.coverage_fraction(gold_iv, test_iv) if len(test_iv) else \
+        np.zeros(len(gold_iv))
+    tp = int(np.sum(cov * (gold_iv[:, 1] - gold_iv[:, 0])))
+    fp, fn = test_bp - tp, gold_bp - tp
+    out = dict(TP=tp, FP=fp, FN=fn,
+               sensitivity=tp / gold_bp if gold_bp else 0.0,
+               precision=tp / test_bp if test_bp else 0.0,
+               F1=2 * tp / (2 * tp + fp + fn) if (2 * tp + fp + fn) else 0.0)
+    for cls, v in sorted(spans.items()):
+        giv = iv.merge(np.array(v, np.int64))
+        c = iv.coverage_fraction(giv, test_iv) if len(test_iv) else \
+            np.zeros(len(giv))
+        out[f"sens_{cls}"] = float(np.sum(c * (giv[:, 1] - giv[:, 0]))
+                                   / iv.total_length(giv))
+    return out
+
+
+class RecordRescore:
+    """Records the inputs of every SW call `annotate.rescore` makes (the
+    module's own binding of the wrapper), to hold each against the plain
+    version afterwards; the calls themselves go through unchanged."""
+
+    def __enter__(self):
+        from hite_tpu_torch.pipeline import annotate
+
+        self.mod, self.orig, self.inputs = annotate, \
+            annotate.batched_local_align_auto, []
+
+        def wrapper(a, b, **kw):
+            self.inputs.append((a.clone(), b.clone()))
+            return self.orig(a, b, **kw)
+
+        annotate.batched_local_align_auto = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.batched_local_align_auto = self.orig
+
+
+def legacy_ltr(bg, device):
+    """Stage 3 on the legacy path (`use_filtr=False`): the tandem mask, then
+    `run.ltr_stage`.  Returns the LTRResult."""
+    import dataclasses
+
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.pipeline.copies import GenomeIndex
+    from hite_tpu_torch.pipeline.run import _mask_tandem_regions, ltr_stage
+
+    genome = Genome.from_dict({"chr1": bg}, device=device)
+    cfg = PipelineConfig()
+    cfg = cfg.replace(ltr=dataclasses.replace(cfg.ltr, use_filtr=False))
+    cfg = cfg.with_genome_size(genome.size)
+    genome.init_mask()
+    _mask_tandem_regions(genome)
+    return ltr_stage(genome, cfg, GenomeIndex(genome, cfg.align), ())
+
+
+def check_legacy() -> dict:
+    """The legacy LTR path: cuda equals the CPU on a 3-copy genome (copies
+    35 kbp apart, 6-8 windows); on the 7-copy genome (~200 windows, 8192
+    wide: hours for the CPU's plain SW) on cuda alone, where the planted
+    family must be found."""
+    import dataclasses
+
+    bg, truth = ltr6_genome(n_copies=3, spacing=35_000)
+    kernels.reset_launches()
+    runs = {dev: legacy_ltr(bg, dev) for dev in ("cuda", "cpu")}
+    recs = [[dataclasses.asdict(r) for r in runs[d].records]
+            for d in ("cuda", "cpu")]
+    assert recs[0] == recs[1], "legacy LTR path: cuda != cpu"
+    assert kernels.LAUNCHES["sw"] > 0, "the legacy path never launched sw"
+    found3 = found_families({0: truth}, [(r["start"], r["end"])
+                                         for r in recs[0]])
+    bg7, truth7 = ltr6_genome()
+    t0 = time.perf_counter()
+    res7 = legacy_ltr(bg7, "cuda")
+    torch.cuda.synchronize()
+    wall7 = time.perf_counter() - t0
+    found7 = found_families({0: truth7}, [(r.start, r.end)
+                                          for r in res7.records])
+    print(f"legacy LTR path (use_filtr=False): 3-copy genome cuda == cpu, "
+          f"{len(recs[0])} records, planted family found {found3}; 7-copy "
+          f"genome on cuda {wall7:.2f} s, {len(res7.records)} records "
+          f"{[(r.start, r.end, r.tsd_len, r.copy_count) for r in res7.records]}"
+          f", found {found7}")
+    assert all(found3) and all(found7), "legacy path missed the family"
+    return dict(records3=recs[0], records7=len(res7.records),
+                wall7_s=wall7)
+
+
+def check_cli() -> dict:
+    """`python -m hite_tpu_torch` in a subprocess on the 160 kbp genome as
+    FASTA, with annotation, BM_HiTE and BM_RM2 and no device argument (so
+    on cuda): exit 0, and the library, GFF and benchmark.json of an
+    in-process run_pipeline on cuda.  Then twice with `--recover 1` (the
+    config hash takes `recover`, and only a recover run writes
+    snapshots): the first writes a snapshot of each stage, the second loads
+    every one of them; both write the same files."""
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.io.fasta import write_fasta
+    from hite_tpu_torch.pipeline.coarse import CoarseParams
+    from hite_tpu_torch.pipeline.run import config_from_argv, run_pipeline
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join("smoke_out", "cli")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    fa = os.path.join(base, "genome.fa")
+    write_fasta(fa, {"chr1": small_genome()})
+    flags = ["--annotate", "1", "--BM_RM2", "1", "--BM_HiTE", "1"]
+    ref = os.path.join(base, "in_process")
+    cfg, args = config_from_argv(["--genome", fa, "--out_dir", ref] + flags)
+    run_pipeline(Genome.from_fasta(fa, device="cuda"), cfg, out_dir=ref,
+                 coarse_params=CoarseParams(seg_len=args.chrom_seg_length))
+
+    def cli(out, *extra):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hite_tpu_torch", "--genome", fa,
+             "--out_dir", out] + flags + list(extra), cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+            text=True, timeout=600)
+        assert proc.returncode == 0, \
+            f"CLI exited {proc.returncode}: {proc.stderr[-3000:]}"
+        return proc.stderr, time.perf_counter() - t0
+
+    stages = ["other", "coarse", "modules", "ltr", "library"]
+    _log, secs = cli(os.path.join(base, "plain"))
+    key = ["confident_TE.cons.fa", "genome.gff", "benchmark.json"]
+    same_files(ref, os.path.join(base, "plain"), key)
+    rec = os.path.join(base, "recover")
+    log1, secs1 = cli(rec, "--recover", "1")
+    log2, secs2 = cli(rec, "--recover", "1")
+    resumed = [[st for st in stages if f"checkpoint: resumed stage {st}" in lg]
+               for lg in (log1, log2)]
+    assert resumed == [[], stages], f"recover runs resumed {resumed}"
+    names = same_files(os.path.join(base, "plain"), rec)
+    print(f"cli: python -m hite_tpu_torch on cuda ({secs:.1f} s) == "
+          f"in-process run_pipeline in {key}; --recover 1 wrote snapshots "
+          f"({secs1:.1f} s), then loaded {resumed[1]} ({secs2:.1f} s); "
+          f"{len(names)} files equal")
+    return dict(seconds=[secs, secs1, secs2], resumed=resumed[1],
+                files=names)
 
 
 def same_modules(a, b):
@@ -755,18 +951,18 @@ def check_cnns() -> dict:
     return out
 
 
-def ltr6_genome(n_copies=7, length=120_000, seed=61):
+def ltr6_genome(n_copies=7, length=120_000, seed=61, spacing=15_000):
     """A random genome with one LTR family (300 bp TG...CA LTRs, 2 kbp
-    interior, 1% mutations, 5 bp TSDs) planted `n_copies` times, so that
-    its records have more than 5 copies and reach the LTR CNN; the tests
-    run the JAX package against the port on it.  Returns (codes,
-    [(start, end)] of each copy)."""
+    interior, 1% mutations, 5 bp TSDs) planted `n_copies` times, a copy
+    every `spacing` bp plus up to 3 kbp, so that its records have more than
+    5 copies and reach the LTR CNN; the tests run the JAX package against
+    the port on it.  Returns (codes, [(start, end)] of each copy)."""
     rng = np.random.default_rng(seed)
     bg = rng.integers(0, 4, length).astype(np.uint8)
     lt = rng.integers(0, 4, 300).astype(np.uint8)
     lt[0], lt[1], lt[-2], lt[-1] = 3, 2, 1, 0
     te = np.concatenate([lt, rng.integers(0, 4, 2000).astype(np.uint8), lt])
-    starts = [5_000 + 15_000 * i + int(rng.integers(0, 3000))
+    starts = [5_000 + spacing * i + int(rng.integers(0, 3000))
               for i in range(n_copies)]
     for pos in starts:
         copy = te.copy()
@@ -780,9 +976,13 @@ def ltr6_genome(n_copies=7, length=120_000, seed=61):
 
 
 def check_ltr6() -> dict:
-    """Stages 1-4 on `ltr6_genome` on cuda and on the CPU: equal in every
-    stage; a forward hook (here, not in the package) counts the LTR CNN's
-    forwards, which must be at least one on each device."""
+    """run_pipeline with annotation on `ltr6_genome` on cuda and on the
+    CPU: every output file byte-equal (but stage_times.json), and every
+    module family, LTR record, library dict and annotation hit equal; a
+    forward hook (here, not in the package) counts the LTR CNN's forwards,
+    which must be at least one on each device."""
+    import dataclasses
+
     from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
 
     bg, truth = ltr6_genome()
@@ -796,22 +996,35 @@ def check_ltr6() -> dict:
     try:
         for dev in ("cuda", "cpu"):
             forwards["n"] = 0
-            runs[dev] = main_path(bg, dev)
+            runs[dev] = pipeline_run(bg, dev, os.path.join(
+                "smoke_out", f"ltr6_{dev}"), annotate=True)[1]
             cnn[dev] = forwards["n"]
     finally:
         handle.remove()
-    same_modules(runs["cuda"], runs["cpu"])
-    same_stages_3_4(runs["cuda"], runs["cpu"])
-    recs = runs["cuda"]["ltr"].records
+    names = same_files(os.path.join("smoke_out", "ltr6_cuda"),
+                       os.path.join("smoke_out", "ltr6_cpu"))
+    a, b = runs["cuda"], runs["cpu"]
+    for k in ("tir", "helitron", "non_ltr"):
+        x, y = getattr(a, k), getattr(b, k)
+        assert np.array_equal(x.accepted.intervals, y.accepted.intervals), k
+        assert x.copy_counts == y.copy_counts, k
+    same_stages_3_4(dict(ltr=a.ltr, libs=a.libs), dict(ltr=b.ltr, libs=b.libs))
+    assert [dataclasses.asdict(h) for h in a.annotation] == \
+        [dataclasses.asdict(h) for h in b.annotation]
+    recs = a.ltr.records
     found = found_families({0: truth}, [(r.start, r.end) for r in recs])
-    print(f"ltr6 genome ({len(bg)} bp, 7 LTR copies), stages 1-4: cuda == "
-          f"cpu; LTR CNN forwards cuda {cnn['cuda']}, cpu {cnn['cpu']}; "
-          f"records {[(r.start, r.end, r.copy_count, r.superfamily) for r in recs]}; "
-          f"library {sorted(runs['cuda']['libs']['merged'])}")
+    print(f"ltr6 genome ({len(bg)} bp, 7 LTR copies), run_pipeline with "
+          f"annotation: cuda == cpu in {len(names)} files; LTR CNN forwards "
+          f"cuda {cnn['cuda']}, cpu {cnn['cpu']}; records "
+          f"{[(r.start, r.end, r.copy_count, r.superfamily) for r in recs]}; "
+          f"library {sorted(a.libs['merged'])}; "
+          f"{len(a.annotation)} annotation hits")
     assert cnn["cuda"] >= 1 and cnn["cpu"] >= 1, "the LTR CNN never ran"
     assert all(found), "the planted LTR family was not found"
-    return dict(cnn_forwards=cnn, records=len(recs),
-                library=sorted(runs["cuda"]["libs"]["merged"]))
+    assert a.annotation, "no annotation hits"
+    return dict(cnn_forwards=cnn, records=len(recs), files=names,
+                library=sorted(a.libs["merged"]),
+                annotation_hits=len(a.annotation))
 
 
 def main() -> int:
@@ -941,7 +1154,7 @@ def main() -> int:
 
     # ---- the TIR path at 8 Mbp on cuda (cold: the first path run)
     length = 8_000_000
-    bg, truth = build_bench_genome(length)
+    bg, truth, seqs = build_bench_genome(length)
     print(f"tir path: bench substrate {length} bp, seed 7, clean")
     hlog.STAGE_TIMES.clear()
     hlog.COUNTERS.clear()
@@ -979,16 +1192,23 @@ def main() -> int:
                               counters=dict(hlog.COUNTERS))
     del genome
 
-    # ---- the main path: stages 1-4 (modules, rescue, LTR, library) at 8 Mbp
-    print(f"main path: bench substrate {length} bp, seed 7, default config "
-          "(te_type all, FiLTR LTR, neural labels), stages 1-4")
+    # ---- the main path: run_pipeline, stages 1-5 (modules, rescue, LTR,
+    # library, the writers, annotation) at 8 Mbp
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.pipeline.benchmark import family_level_metrics
+
+    main_dir = os.path.join("smoke_out", "main")
+    print(f"main path: bench substrate {length} bp, seed 7, run_pipeline "
+          "with the default config and annotate=True (te_type all, FiLTR "
+          "LTR, neural labels), stages 1-5")
     hlog.STAGE_TIMES.clear()
     hlog.COUNTERS.clear()
     native_rt.CALLS["fmea_chain"] = 0
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run = main_path(bg, "cuda")
+    with RecordRescore() as rescore:
+        genome, run = pipeline_run(bg, "cuda", main_dir, annotate=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -997,24 +1217,24 @@ def main() -> int:
     stages = dict(hlog.STAGE_TIMES)
     for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"main path stage {k}: {v:.3f} s")
-    assert run["genome"].device.type == "cuda"
+    assert genome.device.type == "cuda"
     fams = {"tir": "TIR", "helitron": "Helitron", "non_ltr": "SINE"}
     mod_report, all_found = {}, {}
-    for k, m in run["mods"].items():
+    for k in fams:
+        m = getattr(run, k)
         accepted = m.accepted.intervals
         labels = m.accepted.meta.get("te_type")
         found = found_families(truth[fams[k]], accepted)
         all_found[fams[k]] = found
         print(f"main path {k}: accepted {len(accepted)} families, copy "
-              f"counts {m.copy_counts}; low-copy {run['low'][k]} before the "
-              f"rescue, {len(m.low_copy)} after; planted {fams[k]} "
-              f"families accepted {found}"
+              f"counts {m.copy_counts}; low-copy {len(m.low_copy)} after "
+              f"the rescue; planted {fams[k]} families accepted {found}"
               + (f"; labels {sorted(set(labels.tolist()))}"
                  if labels is not None else ""))
         mod_report[k] = dict(accepted=accepted.tolist(),
-                             copy_counts=m.copy_counts, low_copy=run["low"][k],
+                             copy_counts=m.copy_counts,
                              low_copy_after=len(m.low_copy), found=found)
-    records = run["ltr"].records
+    records = run.ltr.records
     for r in records:
         print(f"main path LTR record {r.start}-{r.end} LTRs "
               f"{r.lltr_end - r.lltr_start}/{r.rltr_end - r.rltr_start} bp "
@@ -1022,34 +1242,67 @@ def main() -> int:
               f"{r.copy_count} {r.superfamily}")
     all_found["LTR"] = found_families(truth["LTR"],
                                       [(r.start, r.end) for r in records])
-    pools = {k: len(v) for k, v in run["ltr"].cross_class.items()}
-    classes = library_classes(run["libs"])
+    pools = {k: len(v) for k, v in run.ltr.cross_class.items()}
+    classes = library_classes(run.libs)
     print(f"main path: LTR records {len(records)}, planted LTR families "
           f"found {all_found['LTR']}; cross-class pools {pools}; library "
-          f"{len(run['libs']['merged'])} merged entries, classes {classes}")
-    print(f"main path: wall {wall:.2f} s; coarse candidates "
-          f"{len(run['coarse'])}; rescued {run['rescued']}; sw launches "
-          f"{launches['sw']} at {shapes['sw']}; sw_protein launches "
+          f"{len(run.libs['merged'])} merged entries, classes {classes}")
+    missing = [f for f in MAIN_FILES
+               if not os.path.exists(os.path.join(main_dir, f))]
+    acc = annotation_accuracy(genome, run.annotation, truth)
+    rescore_shapes = [tuple(a.shape) + (b.shape[1],)
+                      for a, b in rescore.inputs]
+    print(f"main path: wall {wall:.2f} s; annotation {len(run.annotation)} "
+          f"hits, base-level sensitivity {acc['sensitivity']:.4f} precision "
+          f"{acc['precision']:.4f} F1 {acc['F1']:.4f} (per class "
+          + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()
+                      if k.startswith("sens_"))
+          + f"); annotate.rescore sw launches at {rescore_shapes}; sw "
+          f"launches {launches['sw']} at {shapes['sw']}; sw_protein launches "
           f"{launches['sw_protein']} at {shapes['sw_protein']}; native "
-          f"chain calls {chain_calls}")
+          f"chain calls {chain_calls}; output files missing {missing}")
     assert all(all(v) for v in all_found.values()), \
         f"a planted family was not found: {all_found}"
     assert {"DNA", "RC", "SINE", "LTR"} <= set(classes), classes
     assert launches["sw"] > 0, "the main path never launched sw"
     assert launches["sw_protein"] > 0, \
         "the main path never launched the protein mode"
+    assert rescore.inputs, "annotate.rescore never launched sw"
+    assert not missing, f"output files missing: {missing}"
+    assert acc["F1"] >= 0.90, f"annotation F1 {acc['F1']} below 0.90"
+    # BM_RM2 against the planted families' sequences (bench.py's gold
+    # library), after the counts were read
+    rm2 = family_level_metrics(
+        run.libs["merged"], seqs,
+        PipelineConfig(annotate=True).with_genome_size(genome.size),
+        device="cuda")
+    print(f"main path: BM_RM2 against the {len(seqs)} planted families: "
+          f"{rm2}")
+    assert rm2["present"] == len(seqs) == 11, f"BM_RM2 {rm2}"
     report["main_path"] = dict(
-        bp=length, wall_s=wall, stages=stages, coarse=len(run["coarse"]),
-        modules=mod_report, rescued=run["rescued"],
+        bp=length, wall_s=wall, stages=stages, modules=mod_report,
         ltr_records=[(r.start, r.end, r.lltr_end, r.rltr_start,
                       r.identity, r.tsd_len, r.copy_count, r.superfamily)
                      for r in records],
-        cross_class=pools, library=sorted(run["libs"]["merged"]),
-        launches=launches,
+        cross_class=pools, library=sorted(run.libs["merged"]),
+        annotation_hits=len(run.annotation), accuracy=acc, bm_rm2=rm2,
+        rescore_shapes=rescore_shapes, launches=launches,
         launch_shapes={k: {str(s): n for s, n in v.items()}
                        for k, v in shapes.items()},
         chain_calls=chain_calls, counters=dict(hlog.COUNTERS))
-    del run
+    del run, genome
+
+    # annotate.rescore's own launches on their recorded inputs, kernel
+    # against the plain version on the card (not counted)
+    rescore_rows = [check_sw(f"rescore_B{a.shape[0]}_{a.shape[1]}", a, b,
+                             10, sass) for a, b in rescore.inputs]
+    report["sw_rescore_inputs"] = rescore_rows
+    n_rs = len(rescore_rows)
+    print(f"sw annotate.rescore: {n_rs} launches bit-exact on their own "
+          "inputs; per launch " + ", ".join(
+              f"{k} {sum(r[k] for r in rescore_rows) / n_rs:.5f}"
+              for k in ("ms", "plain_ms", "bound_ms")) + " ms")
+    del rescore
 
     # each kernel at the main path's own shapes (these launches are not
     # counted): sw with nucleotide inputs, sw_protein with amino acids
@@ -1073,7 +1326,8 @@ def main() -> int:
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        main_path(bg, "cuda")
+        pipeline_run(bg, "cuda", os.path.join("smoke_out", "main_warm"),
+                     annotate=True)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
     # device-side kernel events only (operator rows repeat their kernels'
@@ -1138,13 +1392,16 @@ def main() -> int:
           f"rescued {res['cuda'][0]} of 2 low-copy candidates, "
           f"{kernels.LAUNCHES['sw_protein']} sw_protein launches")
     report["ltr6"] = check_ltr6()
+    report["legacy_ltr"] = check_legacy()
+    report["cli"] = check_cli()
 
     # ---- kernel line: main-path-weighted time of each kernel (device time
     # from the profiler where it saw the kernel, else the event time) and
     # of the bound (the recurrence's int32 operations at the int32 rate)
     entries = []
     for kname, replaces, checks in (
-            ("sw", "hite_tpu/ops/terminal_pallas.py:47", rows + borders),
+            ("sw", "hite_tpu/ops/terminal_pallas.py:47",
+             rows + borders + rescore_rows),
             ("sw_protein", "hite_tpu/ops/terminal.py:157",
              prot_rows + prot_borders)):
         mr = main_rows[kname]

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from hite_tpu_torch.device import resolve_device
-from hite_tpu_torch.io.fasta import CODE_N, encode_seq, read_fasta
+from hite_tpu_torch.io.fasta import CODE_N, decode_seq, encode_seq, read_fasta
 
 # Spacer between contigs: longer than any seed/extension reach so
 # alignments can never bridge two contigs (N never matches).
@@ -77,6 +77,9 @@ class Genome:
         idx = np.searchsorted(self.starts, flat_pos, side="right") - 1
         idx = np.clip(idx, 0, len(self.names) - 1)
         return idx, flat_pos - self.starts[idx]
+
+    def to_flat(self, name: str, pos: int) -> int:
+        return int(self.starts[self.names.index(name)]) + pos
 
     def in_contig(self, start: np.ndarray, end: np.ndarray) -> np.ndarray:
         """True where [start, end) lies inside a single contig (no spacer)."""
@@ -148,6 +151,11 @@ class Genome:
             self._device_cache[key] = ent
         return ent, L
 
+    def to_dict(self) -> Dict[str, np.ndarray]:
+        """Per-contig code arrays (views into flat), keyed by contig name."""
+        return {n: self.flat[self.starts[i] : self.starts[i] + self.lengths[i]]
+                for i, n in enumerate(self.names)}
+
     # ------------------------------------------------------------- extraction
     def extract(self, start: int, end: int, flank: int = 0) -> np.ndarray:
         """Codes for flat [start-flank, end+flank), clipped to the contig."""
@@ -158,6 +166,16 @@ class Genome:
         s = max(c_start, int(start) - flank)
         e = min(c_end, int(end) + flank)
         return self.flat[s:e]
+
+    def extract_str(self, start: int, end: int, flank: int = 0) -> str:
+        return decode_seq(self.extract(start, end, flank))
+
+    def location_str(self, start: int, end: int, strand: str = "+") -> str:
+        """Reference-style copy name ``chr:start-end(strand)``."""
+        ci, local = self.contig_of(np.array([start]))
+        ci = int(ci[0])
+        return (f"{self.names[ci]}:{int(local[0])}-"
+                f"{int(local[0]) + (end - start)}({strand})")
 
 
 def synthetic_genome(

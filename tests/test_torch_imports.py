@@ -37,6 +37,10 @@ MODULES = [
     "hite_tpu_torch.models.ltr_filter", "hite_tpu_torch.models.trainer",
     "hite_tpu_torch.pipeline.ltr", "hite_tpu_torch.pipeline.ltr_deep",
     "hite_tpu_torch.pipeline.libcluster", "hite_tpu_torch.pipeline.library",
+    "hite_tpu_torch.io.gff", "hite_tpu_torch.pipeline.annotate",
+    "hite_tpu_torch.pipeline.checkpoint", "hite_tpu_torch.pipeline.other",
+    "hite_tpu_torch.pipeline.clean", "hite_tpu_torch.pipeline.benchmark",
+    "hite_tpu_torch.pipeline.ltr_legacy",
 ]
 
 
@@ -119,10 +123,31 @@ def test_entry_points_raise_without_gpu(monkeypatch):
                                                 device=d),
              lambda d: load_model(SuperfamilyCNN, path, d),
              lambda d: cnn_inputs(frame, d)]
+    from hite_tpu_torch.pipeline.annotate import rescore_hit_identities
+    from hite_tpu_torch.pipeline.benchmark import family_level_metrics
+    from hite_tpu_torch.pipeline.clean import clean_genome
+
+    calls += [lambda d: rescore_hit_identities([(seq[0], seq[1])], device=d),
+              lambda d: family_level_metrics({}, {"g": seq[0]},
+                                             PipelineConfig(), device=d),
+              lambda d: clean_genome({"c1": seq[0]}, PipelineConfig(),
+                                     device=d)]
     for call in calls:
         with pytest.raises(RuntimeError):
             call(None)
         call("cpu")
+
+
+def test_main_raises_without_gpu(monkeypatch, tmp_path):
+    """The CLI's `main` reads the genome onto the card unless told "cpu"."""
+    from hite_tpu_torch.pipeline.run import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fa = tmp_path / "g.fa"
+    fa.write_text(">chr1\n" + "ACGT" * 100 + "\n")
+    with pytest.raises(RuntimeError, match="GPU"):
+        main(["--genome", str(fa), "--out_dir", str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
 
 
 def test_kernel_wrapper_needs_cuda_tensors_off_cpu():

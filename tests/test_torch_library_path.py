@@ -1,4 +1,4 @@
-"""Stages 3-4 of run_pipeline on hite_tpu_torch vs hite_tpu: the FiLTR LTR
+"""Stages 3-5 of run_pipeline on hite_tpu_torch vs hite_tpu: the FiLTR LTR
 stage and library assembly, from the same stage 1-2b results.
 
 The JAX package runs stages 1-2b (tandem mask, coarse discovery, the
@@ -8,12 +8,14 @@ stages 1-2b equal to these); both sides then start from those results:
 the tandem-masked genome and the module families.  The JAX side runs
 the body of its `run_pipeline`'s stage 3 (masking with the families
 accepted before the rescue, `run_ltr_detection`, `deep_filter_records`
-with the bundled CNN, `cross_class_filter`, `classify_ltr_records`) and
-stage 4 (`build_library`); the port runs `run.ltr_stage` and
-`run.library_stage`.  LTR records, cross-class pools and every library
-dict must be equal, name for name and base for base.  This file: the
-160 kbp `pipeline_parity` genome; `test_torch_library_path_2mbp.py`: the
-2 Mbp bench substrate.
+with the bundled CNN, `cross_class_filter`, `classify_ltr_records`),
+stage 4 (`build_library`) and stage 5 (`annotate_genome` with the merged
+library); the port runs `run.ltr_stage`, `run.library_stage` and
+`annotate.annotate_genome`.  LTR records, cross-class pools, every library
+dict and every annotation hit must be equal, name for name, base for base
+and identity for identity.  This file: the 160 kbp `pipeline_parity`
+genome, and the legacy LTR stage on a 3-element LTR genome;
+`test_torch_library_path_2mbp.py`: the 2 Mbp bench substrate.
 """
 
 import dataclasses
@@ -68,8 +70,19 @@ def _jax_stages_3_4(rep, found):
     return g.masked.copy(), ltr, libs
 
 
+def _annotate(port, g, libs, cfg, gindex):
+    """Stage 5 as run_pipeline runs it: the merged library on the genome's
+    unmasked join."""
+    if port:
+        from hite_tpu_torch.pipeline.annotate import annotate_genome
+    else:
+        from hite_tpu.pipeline.annotate import annotate_genome
+    return annotate_genome(g, libs["merged"], cfg, gindex)
+
+
 def run_stages_3_4(name):
-    """(JAX (masked, ltr, libs), port (masked, ltr, libs), launches)."""
+    """(JAX (masked, ltr, libs, hits), port (masked, ltr, libs, hits),
+    launches)."""
     from hite_tpu_torch import kernels
     from hite_tpu_torch.config import AlignConfig, PipelineConfig
     from hite_tpu_torch.genome import Genome
@@ -83,6 +96,8 @@ def run_stages_3_4(name):
     masked = rep["genome"].masked.copy()
     mods = {k: _port_module(m) for k, m in rep["mods"].items()}
     ref = _jax_stages_3_4(rep, found)
+    ref += (_annotate(False, rep["genome"], ref[2], rep["cfg"],
+                      rep["gindex"]),)
 
     g = Genome.from_dict(contigs, device="cpu")
     g.masked = masked
@@ -93,11 +108,12 @@ def run_stages_3_4(name):
     kernels.reset_launches()
     ltr = ltr_stage(g, tcfg, gindex, found, seg_len=gindex.seg_len)
     libs = library_stage(g, tcfg, ltr=ltr, **mods)
-    return ref, (g.masked.copy(), ltr, libs), dict(kernels.LAUNCHES)
+    hits = _annotate(True, g, libs, tcfg, gindex)
+    return ref, (g.masked.copy(), ltr, libs, hits), dict(kernels.LAUNCHES)
 
 
 def check_ltr(ref, got):
-    (jm, jltr, _), (tm, tltr, _) = ref, got
+    (jm, jltr), (tm, tltr) = ref[:2], got[:2]
     assert np.array_equal(jm, tm)
     assert [dataclasses.asdict(r) for r in jltr.records] == \
         [dataclasses.asdict(r) for r in tltr.records]
@@ -114,6 +130,14 @@ def check_libs(ref, got):
         assert list(jl[key]) == list(tl[key]), key
         for name in jl[key]:
             assert np.array_equal(jl[key][name], tl[key][name]), name
+
+
+def check_annotation(ref, got):
+    """Every hit equal in every field; identities (float64 ratios of the
+    SW rescore's exact counts) compared exactly."""
+    jh, th = ref[3], got[3]
+    assert [dataclasses.asdict(h) for h in jh] == \
+        [dataclasses.asdict(h) for h in th]
 
 
 @pytest.fixture(scope="module")
@@ -135,18 +159,54 @@ def test_library_stage(stages):
     assert launches == {"sw": 0, "sw_protein": 0}   # CPU: plain versions
 
 
-def test_ltr_stage_rejects_legacy_path(stages):
-    """`use_filtr=False` (the legacy LTR path) is not ported: it raises
-    before masking anything."""
-    from hite_tpu_torch.config import PipelineConfig
+def test_annotation(stages):
+    """Stage 5 on the merged library: the same hits; the rescore's SW runs
+    on the CPU's plain version."""
+    ref, got, _ = stages
+    check_annotation(ref, got)
+    assert len(got[3]) >= 10
+    assert any(h.full_length for h in got[3])
+
+
+def test_ltr_stage_legacy_path():
+    """`ltr_stage` with `use_filtr=False` (`--use_FiLTR 0`) equals the JAX
+    `run_pipeline`'s legacy stage 3 (mask, `run_legacy_ltr_detection`,
+    `classify_ltr_records`) on a 2-element LTR genome: the same masked
+    genome and records.  (The 160 kbp genome's legacy windows need 8192-wide
+    SW at 128 rows, hours for the CPU's plain version.)"""
+    from test_ltr import _make_ltr_genome
+
+    from hite_tpu.pipeline.copies import GenomeIndex as JaxIndex
+    from hite_tpu.pipeline.ltr import classify_ltr_records
+    from hite_tpu.pipeline.ltr_legacy import run_legacy_ltr_detection
+    from hite_tpu_torch.config import AlignConfig, PipelineConfig
     from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.pipeline.copies import GenomeIndex
     from hite_tpu_torch.pipeline.run import ltr_stage
 
-    _, (masked, _, _), _ = stages
-    g = Genome.from_dict({"chr1": masked[:1000].copy()}, device="cpu")
-    g.init_mask()
-    cfg = PipelineConfig()
-    cfg = cfg.replace(ltr=dataclasses.replace(cfg.ltr, use_filtr=False))
-    with pytest.raises(NotImplementedError, match="16.1"):
-        ltr_stage(g, cfg, None, [np.array([[0, 500]])])
-    assert np.array_equal(g.masked, g.flat)
+    jg, starts, _el_len, _ = _make_ltr_genome(n_elements=2)
+    found = [np.array([[5_000, 5_600], [70_000, 70_400]])]
+    tcfg = PipelineConfig(align=AlignConfig(fixed_extend_base_threshold=2000))
+    tcfg = tcfg.replace(ltr=dataclasses.replace(tcfg.ltr, use_filtr=False))
+    tcfg = tcfg.with_genome_size(jg.size)
+
+    from hite_tpu.config import AlignConfig as JaxAlign
+    from hite_tpu.config import PipelineConfig as JaxConfig
+
+    jcfg = JaxConfig(align=JaxAlign(fixed_extend_base_threshold=2000))
+    jcfg = jcfg.replace(ltr=dataclasses.replace(jcfg.ltr, use_filtr=False))
+    jcfg = jcfg.with_genome_size(jg.size)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+
+    g = Genome.from_dict({"chr1": jg.flat[: jg.size].copy()}, device="cpu")
+    jg.init_mask()
+    jg.mask_intervals((int(s), int(e)) for arr in found for s, e in arr)
+    ref = run_legacy_ltr_detection(jg, jcfg, JaxIndex(jg, jcfg.align))
+    classify_ltr_records(jg, ref.records, jcfg)
+
+    got = ltr_stage(g, tcfg, GenomeIndex(g, tcfg.align), found)
+    assert np.array_equal(g.masked, jg.masked)
+    assert [dataclasses.asdict(r) for r in got.records] == \
+        [dataclasses.asdict(r) for r in ref.records]
+    assert got.cross_class == {}
+    assert any(abs(r.start - p) <= 10 for r in got.records for p in starts)

@@ -226,14 +226,16 @@ def test_modules_stage_rejects_eahelitron(runs):
 
 def test_chip_smoke_substrate_is_the_bench_substrate():
     """chip_smoke.py's own copy of the bench planting code builds the same
-    genome and the same planted TIR, Helitron, SINE and LTR copies as
-    bench.py."""
+    genome, the same planted TIR, Helitron, SINE and LTR copies and the
+    same family sequences (BM_RM2's gold library) as bench.py."""
     import chip_smoke
     from bench import build_bench_genome
 
     g, truth = build_bench_genome(2_000_000)
-    codes, fams = chip_smoke.build_bench_genome(2_000_000)
+    codes, fams, seqs = chip_smoke.build_bench_genome(2_000_000)
     assert np.array_equal(codes, g.flat[: g.size])
+    assert list(seqs) == list(truth["families"])
+    assert all(np.array_equal(seqs[n], truth["families"][n]) for n in seqs)
     n_fams = {"TIR": 3, "Helitron": 2, "SINE": 2, "LTR": 4}
     assert set(fams) == set(n_fams)
     for cls, n in n_fams.items():
@@ -270,6 +272,13 @@ def test_genome_layout_identical():
                           got.in_contig(pos, pos + 40))
     for s, e, f in ((5, 60, 0), (2990, 3010, 30), (3064, 3074, 100)):
         assert np.array_equal(ref.extract(s, e, f), got.extract(s, e, f))
+        assert ref.extract_str(s, e, f) == got.extract_str(s, e, f)
+        assert ref.location_str(s, e, "-") == got.location_str(s, e, "-")
+    assert [ref.to_flat(n, 7) for n in seqs] == \
+        [got.to_flat(n, 7) for n in seqs]
+    rd, gd = ref.to_dict(), got.to_dict()
+    assert list(rd) == list(gd)
+    assert all(np.array_equal(rd[n], gd[n]) for n in rd)
     tes = ["ACGTTGCA" * 40, "GATTACA" * 30]
     (rg, ri), (tg, ti) = (jax_synth(20_000, tes, [3, 2], seed=4,
                                     tsd_lens=[5, 0]),
