@@ -46,7 +46,29 @@ Phases, each printing its own lines:
      genome as FASTA, with no device argument, equal to an in-process
      run_pipeline; then twice with --recover 1, the second loading every
      stage from its snapshot and writing the same files;
-  9. the kernel line, the card line, and the result line (last).
+  9. the pan path on cuda at 3 x 8 Mbp (scripts.pan_run's genomes and
+     config), counts zeroed just before and read just after:
+     run_pan_pipeline (three per-genome run_pipeline runs with annotation,
+     the merged library, the cross-genome low-copy rescue, occupancy and
+     PAV) and pan_downstream_analysis's annotation of each genome with
+     panTE.fa; each genome's annotation F1 >= 0.90 against its planted
+     copies, the family each genome lacks absent in its PAV column, at
+     least one rescued and one core family; stage times, every output
+     file; every SW launch held against the plain version on its own
+     inputs; then warm under the profiler (device busy share);
+ 10. cuda against the CPU on the tests' small pan genomes (3 x 48 kbp):
+     run_pan_pipeline, pan_downstream_analysis with gene GFFs and RNA
+     reads for two genomes, pan_benchmark, every file byte-equal; then two
+     ranks on the one card over gloo (subprocesses of this script,
+     `--pan-rank`), each rank's files equal to the one-rank run's;
+ 11. run_pipeline with the EAHelitron gate on the 8 Mbp substrate on cuda
+     (its candidates, stage time and the scans' device ms; every planted
+     TIR, Helitron and SINE family accepted), and the modules path with
+     the gate, cuda against the CPU, on the 240 kbp modules genome;
+ 12. the pan CLI: python -m hite_tpu_torch.pipeline.pan --skip_analyze 1
+     in a subprocess with no device argument, equal to in-process main;
+ 13. the kernel line (launches of the main and the pan path), the card
+     line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
 Detailed numbers go to smoke_out/chip_smoke.json, the runs' output files
@@ -407,15 +429,21 @@ def sw_device_ms(a, b, n, R=None, packed=None, protein=False):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(n):
-            sw(a, b, R, packed, protein)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and "sw_kernel" in e.key]
-    dev_us = sum(e.self_device_time_total for e in ev)
-    count = sum(e.count for e in ev)
+    # the profiler now and then hands back no kernel record late in a long
+    # process: profile again before falling back to events
+    for _attempt in range(3):
+        with torch.profiler.profile(activities=acts,
+                                    acc_events=True) as prof:
+            for _ in range(n):
+                sw(a, b, R, packed, protein)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "sw_kernel" in e.key]
+        dev_us = sum(e.self_device_time_total for e in ev)
+        count = sum(e.count for e in ev)
+        if count:
+            break
     return (dev_us / count / 1e3 if count else None), cuda_ms(
         lambda: sw(a, b, R, packed, protein), n)
 
@@ -583,17 +611,17 @@ def tir_path(bg, device):
     return genome, coarse, mods["tir"]
 
 
-def modules_path(bg, device):
-    """Stages 1-2b of run_pipeline for the default te_type="all": the
-    discovery, the TIR, Helitron and non-LTR gates, one shared copy join,
-    each module verified, then the low-copy structural and domain rescue.
-    Returns {genome, cfg, gindex, coarse, mods, low (low-copy counts
-    before the rescue), rescued}."""
+def modules_path(bg, device, **cfg_kw):
+    """Stages 1-2b of run_pipeline for the default te_type="all" (the
+    default config with `cfg_kw`): the discovery, the TIR, Helitron and
+    non-LTR gates, one shared copy join, each module verified, then the
+    low-copy structural and domain rescue.  Returns {genome, cfg, gindex,
+    coarse, mods, low (low-copy counts before the rescue), rescued}."""
     from hite_tpu_torch.config import PipelineConfig
     from hite_tpu_torch.pipeline.run import _rescue_low_copy
 
     genome, cfg, coarse, mods, gindex = discover_and_verify(
-        bg, device, PipelineConfig())
+        bg, device, PipelineConfig(**cfg_kw))
     assert cfg.te_type == "all" and list(mods) == ["tir", "helitron",
                                                    "non_ltr"]
     low = {k: len(m.low_copy) for k, m in mods.items()}
@@ -1027,6 +1055,499 @@ def check_ltr6() -> dict:
                 annotation_hits=len(a.annotation))
 
 
+# ---------------------------------------------------------------- pan path
+
+# the pan run's output files beside the per-genome run directories
+PAN_FILES = ["panTE.fa", "pan_PAV.tsv", "pan_classification.json",
+             "ltr_insert_time.csv"]
+
+
+class RecordSW:
+    """Records the inputs, arguments and outputs of every SW kernel launch
+    (`terminal._sw_cuda`, through which the wrapper sends every call on the
+    card), to hold each against the plain version afterwards; the launches
+    themselves go through unchanged."""
+
+    def __enter__(self):
+        self.orig, self.calls = terminal._sw_cuda, []
+
+        def wrapper(a, b, **kw):
+            out = self.orig(a, b, **kw)
+            self.calls.append((a.clone(), b.clone(), dict(kw),
+                               [f.clone() for f in out]))
+            return out
+
+        terminal._sw_cuda = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        terminal._sw_cuda = self.orig
+
+
+def check_recorded(calls, sass, label):
+    """Every recorded launch against the plain version on its own inputs:
+    the launches of one (mode, La, Lb) are stacked along the batch (rows
+    are independent alignments) and go through the plain version in one
+    call, which must equal the kernel's recorded outputs on every row of
+    all 7 fields.  Each (mode, B, La, Lb) is timed once on its first
+    launch's inputs (device time; events where the profiler saw none);
+    plain ms is that one stacked call (an upper bound of one launch's, the
+    plain version's steps do not depend on B).  Returns rows as check_sw's,
+    with `launches`, for the sw and sw_protein kernel entries."""
+    groups = {}
+    for a, b, kw, out in calls:
+        protein = kw.get("submatrix") is not None
+        groups.setdefault((protein, a.shape[1], b.shape[1]), []).append(
+            (a, b, kw, out))
+    rows = {"sw": [], "sw_protein": []}
+    for (protein, La, Lb), items in sorted(groups.items()):
+        kw = dict(items[0][2])
+        assert all(i[2].keys() == kw.keys() for i in items)
+        sub = kw.pop("submatrix")
+        if protein:
+            sub = torch.from_numpy(terminal._table_array(sub)).to("cuda")
+        a = torch.cat([i[0] for i in items])
+        b = torch.cat([i[1] for i in items])
+        got = [torch.cat([i[3][f] for i in items]) for f in range(7)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = terminal.batched_local_align(a, b, submatrix=sub, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((g.to(torch.int64) - r.to(torch.int64)).abs().max())
+                  for g, r in zip(got, ref)) if len(a) else 0
+        assert err == 0, f"{label}: sw kernel != plain at {La}x{Lb}"
+        by_b = {}
+        for i in items:
+            by_b.setdefault(i[0].shape[0], []).append(i)
+        for B, its in sorted(by_b.items()):
+            dev_ms, ms = sw_device_ms(its[0][0], its[0][1],
+                                      20 if B * La * Lb < 1 << 28 else 5,
+                                      protein=protein)
+            bound, by = sw_bound_ms(B, La, Lb, SW_OPS_PER_CELL, PEAK_INT32_S)
+            row = dict(B=B, La=La, Lb=Lb, launches=len(its), max_abs_err=err,
+                       ms=dev_ms or ms, device_ms=dev_ms, call_ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            rows["sw_protein" if protein else "sw"].append(row)
+            print(f"{'sw_protein' if protein else 'sw'} {label} B={B} "
+                  f"{La}x{Lb}: {len(its)} launches bit-exact on their own "
+                  f"inputs; kernel {row['ms']:.4f} ms "
+                  f"({'device' if dev_ms else 'events'})  plain "
+                  f"{plain_ms:.1f} ms (one call, {len(a)} rows)  bound "
+                  f"{bound:.5f} ms ({by}; {row['ms'] / bound:.1f}x)")
+    return rows
+
+
+def pan_genomes(codes, device):
+    from hite_tpu_torch.genome import Genome
+
+    return {n: Genome.from_dict({"chr1": c.copy()}, device=device)
+            for n, c in codes.items()}
+
+
+def out_files(root):
+    """Every file under `root`, relative, sorted."""
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def pan_path(sass, mbp=8, device="cuda") -> dict:
+    """The pan path at 3 x 8 Mbp on cuda (`scripts.pan_run`'s genomes and
+    config): run_pan_pipeline (the three per-genome run_pipeline runs, the
+    merged library, the cross-genome low-copy rescue, occupancy / PAV),
+    then pan_downstream_analysis's annotation of each genome with
+    panTE.fa, counts zeroed just before and read just after; every SW
+    launch recorded and held against the plain version on its own inputs.
+    Checks each genome's annotation F1 >= 0.90 against its planted copies,
+    the family each genome lacks absent in its PAV column, at least one
+    rescue and one core family.  Then the same again, warm, under the
+    profiler (device busy share)."""
+    from hite_tpu_torch.pipeline.pan import (
+        pan_downstream_analysis, run_pan_pipeline,
+    )
+    from hite_tpu_torch.scripts import pan_run
+
+    codes, truths, expect = pan_run.pan_genome_codes(mbp * 1_000_000)
+    cfg, params = pan_run.pan_config()
+    out = os.path.join("smoke_out", "pan")
+    shutil.rmtree(out, ignore_errors=True)
+    metas = [{"genome_name": n} for n in codes]
+    print(f"pan path: 3 x {mbp} Mbp genomes (scripts.pan_run, seed 17), "
+          "run_pan_pipeline with PipelineConfig(annotate=True, "
+          "fixed_extend_base_threshold=2000) and bench.py's CoarseParams, "
+          "then pan_downstream_analysis (annotation with panTE.fa)")
+    genomes = pan_genomes(codes, device)
+    hlog.STAGE_TIMES.clear()
+    hlog.COUNTERS.clear()
+    native_rt.CALLS["fmea_chain"] = 0
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RecordSW() as rec:
+        res = run_pan_pipeline(genomes, cfg, out_dir=out,
+                               coarse_params=params)
+        torch.cuda.synchronize()
+        t_pan = time.perf_counter() - t0
+        down = pan_downstream_analysis(genomes, res, metas, cfg, out)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    shapes = {k: {str(s): n for s, n in v.items()}
+              for k, v in kernels.LAUNCH_SHAPES.items()}
+    chain_calls = native_rt.CALLS["fmea_chain"]
+    stages = dict(hlog.STAGE_TIMES)
+    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
+        if k.startswith("pan.") or v >= 0.05:
+            print(f"pan path stage {k}: {v:.3f} s")
+    files = out_files(out)
+    cls = {}
+    for c in res.classification.values():
+        cls[c] = cls.get(c, 0) + 1
+    print(f"pan path: run_pan_pipeline {t_pan:.2f} s, with the annotation "
+          f"{wall:.2f} s; pan library {len(res.pan_lib)} entries; rescued "
+          f"{res.rescued}; classes {cls}; downstream {down}; sw launches "
+          f"{launches['sw']}, sw_protein {launches['sw_protein']}; native "
+          f"chain calls {chain_calls}; {len(files)} output files: {files}")
+    assert launches["sw"] > 0, "the pan path never launched sw"
+    assert len(rec.calls) == launches["sw"] + launches["sw_protein"]
+    # the planted truth, after the counts were read
+    acc = {}
+    for g in codes:
+        a = pan_run.accuracy_metrics(genomes[g], res.per_genome[g],
+                                     truths[g], cfg)
+        acc[g] = a
+        print(f"pan path {g}: annotation {len(res.per_genome[g].annotation)}"
+              f" hits, F1 {a['F1']:.4f} (sensitivity {a['sensitivity']:.4f}"
+              f" precision {a['precision']:.4f}; " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in a.items()
+                  if k.startswith("sens_")) + f"); BM_RM2 {a['BM_RM2']}")
+    fams = {}
+    for t in truths.values():
+        fams.update(t["families"])
+    entries = pan_run.family_entries(res.pan_lib, fams, cfg, device)
+    col = {g: j for j, g in enumerate(res.pav_genomes)}
+    row = {f: i for i, f in enumerate(res.pav_families)}
+    absent = {g: {e: int(res.pav[row[e], col[g]]) for e in entries[f]}
+              for g, f in expect["absent"].items()}
+    print(f"pan path: planted family -> pan entries {entries}; the "
+          f"families each genome lacks ({expect['absent']}), PAV counts "
+          f"there {absent}")
+    assert all(a["F1"] >= 0.90 for a in acc.values()), \
+        {g: a["F1"] for g, a in acc.items()}
+    assert all(v and not any(v.values()) for v in absent.values()), absent
+    assert res.rescued >= 1, "the cross-genome rescue never fired"
+    assert cls.get("core", 0) >= 1, cls
+    assert all(f in files for f in PAN_FILES), files
+    rows = check_recorded(rec.calls, sass, "pan path")
+    del rec
+
+    # ---- warm, under the profiler: device busy share
+    genomes = pan_genomes(codes, device)
+    hlog.STAGE_TIMES.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res2 = run_pan_pipeline(genomes, cfg, out_dir=out + "_warm",
+                                coarse_params=params)
+        pan_downstream_analysis(genomes, res2, metas, cfg, out + "_warm")
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+    avg = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in avg)
+    top = sorted(avg, key=lambda e: -e.self_device_time_total)[:8]
+    warm_stages = {k: v for k, v in hlog.STAGE_TIMES.items()
+                   if k.startswith("pan.")}
+    print(f"pan path warm (profiled): wall {warm:.2f} s; device busy "
+          + (f"{busy_us / 1e6:.3f} s = {busy_us / 1e4 / warm:.1f}% of wall"
+             if busy_us else "not measured (the profiler saw no device "
+             "time)") + "; " + ", ".join(
+                 f"{k} {v:.3f}" for k, v in sorted(warm_stages.items())))
+    for e in top:
+        print(f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
+              f"{e.count:7d} calls  {e.key[:70]}")
+    assert res2.pav.tolist() == res.pav.tolist()
+    return dict(
+        wall_s=wall, run_pan_pipeline_s=t_pan, stages=stages,
+        pan_library=sorted(res.pan_lib), rescued=res.rescued,
+        classification_counts=cls, downstream=down, accuracy=acc,
+        absent=absent, launches=launches, launch_shapes=shapes,
+        chain_calls=chain_calls, files=files, sw_rows=rows,
+        warm=dict(wall_s=warm, device_busy_s=busy_us / 1e6,
+                  stages=warm_stages,
+                  top_device_ops=[(e.key, e.self_device_time_total / 1e3,
+                                   e.count) for e in top]))
+
+
+def small_pan(device, out):
+    """The tests' small pan genomes on `device`: run_pan_pipeline, then
+    pan_downstream_analysis with gene GFFs and RNA reads for two genomes
+    (300 bp window), then pan_benchmark against the planted families.
+    Returns (PanResult, downstream summary, benchmark metrics)."""
+    from hite_tpu_torch.pipeline.pan import (
+        pan_benchmark, pan_downstream_analysis, run_pan_pipeline,
+    )
+    from hite_tpu_torch.scripts import pan_run
+
+    codes, truths = pan_run.small_pan_codes()
+    cfg, params = pan_run.small_pan_config()
+    shutil.rmtree(out, ignore_errors=True)
+    genomes = pan_genomes(codes, device)
+    res = run_pan_pipeline(genomes, cfg, out_dir=os.path.join(out, "pan"),
+                           coarse_params=params)
+    metas = pan_run.downstream_inputs(codes, truths,
+                                      os.path.join(out, "inputs"))
+    down = pan_downstream_analysis(genomes, res, metas, cfg,
+                                   os.path.join(out, "down"), window=300)
+    gold = {}
+    for t in truths.values():
+        gold.update(t["families"])
+    bm = pan_benchmark(genomes, res.pan_lib, gold, cfg,
+                       out_dir=os.path.join(out, "bm"))
+    return res, down, bm
+
+
+def same_pan_dirs(a, b):
+    """Two pan output directories byte-equal: the pan files and every
+    per-genome run's files."""
+    same_files(a, b, PAN_FILES)
+    n = len(PAN_FILES)
+    for g in sorted(os.listdir(os.path.join(a, "genomes"))):
+        n += len(same_files(os.path.join(a, "genomes", g),
+                            os.path.join(b, "genomes", g)))
+    return n
+
+
+def check_small_pan() -> dict:
+    """cuda against the CPU on the small pan genomes: every file of the
+    pan run, the downstream analysis and the benchmark byte-equal."""
+    t = {}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = small_pan(dev, os.path.join("smoke_out",
+                                                f"pan_small_{dev}"))
+        t[dev] = time.perf_counter() - t0
+    base = {d: os.path.join("smoke_out", f"pan_small_{d}") for d in runs}
+    n = same_pan_dirs(os.path.join(base["cuda"], "pan"),
+                      os.path.join(base["cpu"], "pan"))
+    down = same_files(os.path.join(base["cuda"], "down"),
+                      os.path.join(base["cpu"], "down"))
+    same_files(os.path.join(base["cuda"], "bm"),
+               os.path.join(base["cpu"], "bm"), ["pan_benchmark.json"])
+    (rg, dg, bg), (rc, dc, bc) = runs["cuda"], runs["cpu"]
+    assert (rg.rescued, rg.classification, dg, bg) == \
+        (rc.rescued, rc.classification, dc, bc)
+    assert rg.rescued >= 1 and dg["de_genes"] >= 0 and dg["samples"] == 2
+    print(f"small pan (3 x 48 kbp): cuda == cpu in {n} pan-run files, "
+          f"{len(down)} downstream files {down} and pan_benchmark.json; "
+          f"rescued {rg.rescued}; classification {rg.classification}; "
+          f"downstream {dg}; cuda {t['cuda']:.1f} s, cpu {t['cpu']:.1f} s")
+    return dict(files=n, downstream_files=down, rescued=rg.rescued,
+                classification=rg.classification, downstream=dg,
+                seconds=t)
+
+
+def pan_rank_main(argv) -> int:
+    """One rank of the two-rank check (`chip_smoke.py --pan-rank ADDR RANK
+    WORLD OUT DEVICE`): joins the gloo group, runs run_pan_pipeline on the
+    small pan genomes on DEVICE and prints its genomes and result."""
+    import torch.distributed as dist
+
+    from hite_tpu_torch.parallel import multihost as mh
+    from hite_tpu_torch.pipeline.pan import run_pan_pipeline
+    from hite_tpu_torch.scripts import pan_run
+
+    addr, rank, world, out, dev = (argv[0], int(argv[1]), int(argv[2]),
+                                   argv[3], argv[4])
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank)
+    codes, _ = pan_run.small_pan_codes()
+    cfg, params = pan_run.small_pan_config()
+    res = run_pan_pipeline(pan_genomes(codes, dev), cfg, out_dir=out,
+                           coarse_params=params)
+    print("PAN_RANK " + json.dumps({
+        "rank": rank, "world": mh.process_count(),
+        "ran": mh.partition(list(codes)), "rescued": res.rescued,
+        "classification": res.classification}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_two_ranks(one_rank_dir, device="cuda") -> dict:
+    """Two ranks on the one card over gloo (subprocesses of this script),
+    each running its share of the small pan genomes: both ranks' pan files
+    and the per-genome files each rank wrote equal the one-rank cuda
+    run's."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    addr = f"tcp://localhost:{s.getsockname()[1]}"
+    s.close()
+    root = os.path.dirname(os.path.abspath(__file__))
+    outs = [os.path.abspath(os.path.join("smoke_out", f"pan_rank{r}"))
+            for r in range(2)]
+    for o in outs:
+        shutil.rmtree(o, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pan-rank", addr,
+         str(r), "2", outs[r], device], cwd=root, env=dict(os.environ,
+                                                    PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    info = []
+    for r, (p, (so, se)) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}: " \
+            f"{se[-3000:]}"
+        info.append(json.loads(so.split("PAN_RANK ", 1)[1].splitlines()[0]))
+    assert [i["ran"] for i in info] == [["g1", "g3"], ["g2"]], info
+    n = 0
+    for r, o in enumerate(outs):
+        n += len(same_files(one_rank_dir, o, PAN_FILES))
+        for g in info[r]["ran"]:
+            n += len(same_files(os.path.join(one_rank_dir, "genomes", g),
+                                os.path.join(o, "genomes", g)))
+    assert info[0]["classification"] == info[1]["classification"]
+    print(f"two ranks on one card (gloo): rank 0 ran {info[0]['ran']}, "
+          f"rank 1 {info[1]['ran']}; {n} files equal to the one-rank run; "
+          f"rescued {info[0]['rescued']}; {secs:.1f} s")
+    return dict(ranks=info, files=n, seconds=secs)
+
+
+class RecordEA:
+    """Device time of every EAHelitron scan call (CUDA events around each
+    call of `ops.eahelitron.hel3_scan` / `tc5_scan`, which
+    `eahelitron_gate` looks up at call time) and the shapes scanned."""
+
+    def __enter__(self):
+        from hite_tpu_torch.ops import eahelitron as ea
+
+        self.mod, self.orig = ea, (ea.hel3_scan, ea.tc5_scan)
+        self.ms, self.shapes = {"hel3_scan": 0.0, "tc5_scan": 0.0}, {}
+
+        def timed(name, fn):
+            def call(codes, *args):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = fn(codes, *args)
+                t1.record()
+                torch.cuda.synchronize()
+                self.ms[name] += t0.elapsed_time(t1)
+                key = (name, tuple(codes.shape))
+                self.shapes[key] = self.shapes.get(key, 0) + 1
+                return out
+            return call
+
+        ea.hel3_scan = timed("hel3_scan", ea.hel3_scan)
+        ea.tc5_scan = timed("tc5_scan", ea.tc5_scan)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hel3_scan, self.mod.tc5_scan = self.orig
+
+
+def check_eahelitron() -> dict:
+    """run_pipeline with the EAHelitron gate on (annotate=True) on the
+    8 Mbp bench substrate on cuda: the gate's candidates, its stage time
+    and the scans' device ms; every planted TIR, Helitron and SINE family
+    still accepted.  Then the modules path with the gate on, cuda against
+    the CPU, on the 240 kbp modules genome."""
+    import dataclasses
+
+    from hite_tpu_torch.config import HelitronConfig
+
+    ea_cfg = dict(helitron=dataclasses.replace(HelitronConfig(),
+                                               use_eahelitron=True))
+    bg, truth, _seqs = build_bench_genome(8_000_000)
+    hlog.STAGE_TIMES.clear()
+    hlog.COUNTERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RecordEA() as ea:
+        genome, run = pipeline_run(bg, "cuda",
+                                   os.path.join("smoke_out", "eahelitron"),
+                                   annotate=True, **ea_cfg)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_ea = hlog.COUNTERS.get("helitron.eahelitron", 0)
+    gate_s = hlog.STAGE_TIMES.get("helitron.eahelitron_gate", 0.0)
+    found = {cls: found_families(truth[cls], getattr(run, k).accepted.intervals)
+             for k, cls in (("tir", "TIR"), ("helitron", "Helitron"),
+                            ("non_ltr", "SINE"))}
+    calls = sum(ea.shapes.values())
+    print(f"eahelitron: run_pipeline (annotate, use_eahelitron) on the 8 Mbp "
+          f"bench substrate, cuda: wall {wall:.2f} s; EAHelitron candidates "
+          f"{n_ea}; helitron.eahelitron_gate {gate_s:.3f} s; scans "
+          f"{calls} calls, device ms (CUDA events) hel3_scan "
+          f"{ea.ms['hel3_scan']:.2f}, tc5_scan {ea.ms['tc5_scan']:.3f}, at "
+          f"{sorted(ea.shapes)}; helitron accepted "
+          f"{len(run.helitron.accepted)}; planted families accepted {found}")
+    assert n_ea > 0, "the EAHelitron gate found nothing"
+    assert all(all(v) for v in found.values()), found
+    del run, genome, bg
+    small = small_modules_genome()
+    on = {dev: modules_path(small, dev, **ea_cfg) for dev in ("cuda", "cpu")}
+    same_modules(on["cuda"], on["cpu"])
+    h = on["cuda"]["mods"]["helitron"]
+    print(f"eahelitron: small modules path ({len(small)} bp) with the gate, "
+          f"cuda == cpu; helitron accepted {h.accepted.intervals.tolist()} "
+          f"copies {h.copy_counts}")
+    return dict(wall_s=wall, candidates=n_ea, gate_s=gate_s,
+                scan_ms=ea.ms, scan_calls=calls,
+                scan_shapes={str(k): v for k, v in ea.shapes.items()},
+                found=found)
+
+
+def check_pan_cli() -> dict:
+    """`python -m hite_tpu_torch.pipeline.pan --skip_analyze 1` in a
+    subprocess with no device argument (so on cuda) over the small pan
+    genomes as FASTA: exit 0, and the pan files and every per-genome
+    run's files of an in-process `main(..., device="cuda")`."""
+    from hite_tpu_torch.io.fasta import write_fasta
+    from hite_tpu_torch.pipeline.pan import main as pan_main
+    from hite_tpu_torch.scripts import pan_run
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join("smoke_out", "pan_cli")
+    shutil.rmtree(base, ignore_errors=True)
+    gdir = os.path.join(base, "genomes")
+    os.makedirs(gdir)
+    codes, _ = pan_run.small_pan_codes()
+    for n, c in codes.items():
+        write_fasta(os.path.join(gdir, f"{n}.fa"), {"chr1": c})
+    args = ["--pan_genomes_dir", gdir, "--skip_analyze", "1",
+            "--chrom_seg_length", "16384"]
+    ref = os.path.join(base, "in_process")
+    pan_main(args + ["--out_dir", ref], device="cuda")
+    cli = os.path.join(base, "cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hite_tpu_torch.pipeline.pan"] + args
+        + ["--out_dir", cli], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, \
+        f"pan CLI exited {proc.returncode}: {proc.stderr[-3000:]}"
+    n = same_pan_dirs(ref, cli)
+    print(f"pan cli: python -m hite_tpu_torch.pipeline.pan --skip_analyze 1 "
+          f"on cuda ({secs:.1f} s) == in-process main in {n} files")
+    return dict(seconds=secs, files=n)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1395,22 +1916,38 @@ def main() -> int:
     report["legacy_ltr"] = check_legacy()
     report["cli"] = check_cli()
 
-    # ---- kernel line: main-path-weighted time of each kernel (device time
-    # from the profiler where it saw the kernel, else the event time) and
-    # of the bound (the recurrence's int32 operations at the int32 rate)
+    # ---- the pan path at 3 x 8 Mbp, its SW launches on their own inputs
+    pan = pan_path(sass)
+    report["pan_path"] = pan
+    # ---- cuda against the CPU on the small pan genomes, two ranks on the
+    # one card against one, the EAHelitron gate, the pan CLI
+    report["pan_small"] = check_small_pan()
+    report["pan_two_ranks"] = check_two_ranks(
+        os.path.join("smoke_out", "pan_small_cuda", "pan"))
+    report["eahelitron"] = check_eahelitron()
+    report["pan_cli"] = check_pan_cli()
+
+    # ---- kernel line: time of each kernel weighted over the launches of
+    # the main path and the pan path (device time from the profiler where
+    # it saw the kernel, else the event time) and of the bound (the
+    # recurrence's int32 operations at the int32 rate); `launches` is the
+    # two paths' counts together, each also listed by path
     entries = []
     for kname, replaces, checks in (
             ("sw", "hite_tpu/ops/terminal_pallas.py:47",
              rows + borders + rescore_rows),
             ("sw_protein", "hite_tpu/ops/terminal.py:157",
              prot_rows + prot_borders)):
-        mr = main_rows[kname]
+        mr = main_rows[kname] + pan["sw_rows"][kname]
         tot = sum(r["launches"] for r in mr)
         wavg = lambda key: sum(r[key] * r["launches"] for r in mr) / tot
+        by_path = {"main": launches[kname],
+                   "pan": pan["launches"][kname]}
         entries.append({
             "name": kname, "route": "cuda",
             "source": "hite_tpu_torch/csrc/sw.cu", "replaces": replaces,
-            "launches": launches[kname],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in checks + mr),
             "ms": wavg("ms"), "plain_ms": wavg("plain_ms"),
             "bound_ms": wavg("bound_ms"),
@@ -1429,4 +1966,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pan-rank"]:
+        sys.exit(pan_rank_main(sys.argv[2:]))
     sys.exit(main())

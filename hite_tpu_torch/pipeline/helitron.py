@@ -9,8 +9,8 @@ Helitron judge (`judge_boundary_v6` `Util.py:9821-10159`): the consensus
 must carry an 'ATC'-context 5' head within its first bases and a
 CTAGT/CTAAT/CTGGT/CTGAT 3' tail, and Helitrons need only >=2 copies.
 
-The EAHelitron structure gate (`cfg.helitron.use_eahelitron`, off by
-default) is not ported yet (ROADMAP.md item 16.2): asking for it raises.
+`cfg.helitron.use_eahelitron` (off by default) adds the EAHelitron
+structure gate (`ops.eahelitron`) and unions its spans with the LCV gate's.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from hite_tpu_torch.pipeline.boundary_adjust import FamilyAnalysis
 from hite_tpu_torch.pipeline.candidates import bucket_iter, pad_rows, pad_seqs
 from hite_tpu_torch.pipeline.copies import GenomeIndex
 from hite_tpu_torch.pipeline.verify import ModuleResult, verify_families
-from hite_tpu_torch.utils.log import logger, stage_timer
+from hite_tpu_torch.utils import intervals as iv
+from hite_tpu_torch.utils.log import count, logger, stage_timer
 
 TAIL_MOTIFS = [encode_seq(m) for m in ("CTAGT", "CTAAT", "CTGGT", "CTGAT")]
 HEAD_MOTIF = encode_seq("ATC")
@@ -149,16 +150,80 @@ def lcv_gate(
     return np.array(out, np.int64).reshape(-1, 2)
 
 
+def eahelitron_gate(
+    genome: Genome,
+    intervals: np.ndarray,
+    cfg: PipelineConfig,
+) -> np.ndarray:
+    """EAHelitron-style 5'ATC..hairpin-CTRRT structure gate (both strands).
+
+    Returns trimmed candidate intervals; unioned with the LCV gate when
+    `cfg.helitron.use_eahelitron` (the reference concatenates EAHelitron
+    and HelitronScanner candidates, judge_Helitron_transposons.py:49-54).
+    """
+    from hite_tpu_torch.ops.eahelitron import (
+        hel3_scan, select_pairs, tc5_scan,
+    )
+
+    hcfg = cfg.helitron
+    flank = cfg.msa.flanking_len   # gate-stage candidate context
+    out: List[Tuple[int, int]] = []
+    lens = intervals[:, 1] - intervals[:, 0]
+
+    for width, idxs in bucket_iter(range(len(intervals)), lens + 2 * flank):
+        seqs = []
+        metas = []  # (interval idx, left-flank actually available)
+        for i in idxs:
+            s = genome.extract(intervals[i, 0], intervals[i, 1], flank)
+            # reference skips candidates containing a 10bp N run
+            # (run_EAHelitron, Util.py:137-140)
+            isn = (s >= 4).astype(np.int8)
+            if len(s) >= 10 and np.convolve(isn, np.ones(10, np.int8),
+                                            "valid").max() >= 10:
+                continue
+            ci, local = genome.contig_of(np.array([intervals[i, 0]]))
+            seqs.append(s)
+            metas.append((i, min(flank, int(local[0]))))
+        if not seqs:
+            continue
+        n = len(seqs)
+        rows = pad_rows(n)
+        mat, slens = pad_seqs(seqs, width, n_rows=rows)
+        # reverse strand: revcomp each row within its own length so row-local
+        # positions stay in [0, len)
+        mat_r, _ = pad_seqs([np_revcomp(s) for s in seqs], width, n_rows=rows)
+        for orient, m_arr in ((0, mat), (1, mat_r)):
+            arr = torch.from_numpy(m_arr).to(genome.device)
+            hel3 = hel3_scan(arr, hcfg.ea_fuzzy_level).cpu().numpy()
+            tc5 = tc5_scan(arr).cpu().numpy()
+            raw_s = np.array([m[1] for m in metas])
+            raw_e = raw_s + (intervals[[m[0] for m in metas], 1]
+                             - intervals[[m[0] for m in metas], 0])
+            if orient == 1:  # raw boundaries in the flipped frame
+                L_all = slens[:n].astype(np.int64)
+                raw_s, raw_e = L_all - raw_e, L_all - raw_s
+            picks = select_pairs(hel3[:n], tc5[:n], slens[:n], raw_s, raw_e,
+                                 upstream=hcfg.ea_upstream,
+                                 min_len=cfg.library.min_te_len)
+            for b, pick in enumerate(picks):
+                if pick is None:
+                    continue
+                s_loc, e_loc = pick
+                if orient == 1:  # map back to forward frame
+                    L = int(slens[b])
+                    s_loc, e_loc = L - e_loc, L - s_loc
+                i, lf = metas[b]
+                g0 = int(intervals[i, 0]) - lf
+                out.append((g0 + s_loc, g0 + e_loc))
+    return np.array(out, np.int64).reshape(-1, 2)
+
+
 def gate_helitron(
     genome: Genome,
     coarse_intervals: np.ndarray,
     cfg: PipelineConfig,
 ) -> np.ndarray:
-    """Helitron gating phase: tandem filter + LCV gate."""
-    if cfg.helitron.use_eahelitron:
-        raise NotImplementedError(
-            "the EAHelitron structure gate (cfg.helitron.use_eahelitron) is "
-            "not ported yet (ROADMAP.md item 16.2); run with it off")
+    """Helitron gating phase: tandem filter + LCV (+EAHelitron) gates."""
     if len(coarse_intervals) == 0:
         return np.zeros((0, 2), np.int64)
 
@@ -175,6 +240,13 @@ def gate_helitron(
         gated = lcv_gate(genome, coarse_intervals, cfg)
     logger.info("helitron: %d/%d candidates pass LCV head+tail gate",
                 len(gated), len(coarse_intervals))
+    if cfg.helitron.use_eahelitron:
+        with stage_timer("helitron.eahelitron_gate"):
+            ea = eahelitron_gate(genome, coarse_intervals, cfg)
+        logger.info("helitron: +%d EAHelitron structure candidates", len(ea))
+        count("helitron.eahelitron", len(ea))
+        if len(ea):
+            gated, _ = iv.dedup(np.concatenate([gated, ea]), q=10)
     return gated
 
 

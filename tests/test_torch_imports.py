@@ -40,7 +40,9 @@ MODULES = [
     "hite_tpu_torch.io.gff", "hite_tpu_torch.pipeline.annotate",
     "hite_tpu_torch.pipeline.checkpoint", "hite_tpu_torch.pipeline.other",
     "hite_tpu_torch.pipeline.clean", "hite_tpu_torch.pipeline.benchmark",
-    "hite_tpu_torch.pipeline.ltr_legacy",
+    "hite_tpu_torch.pipeline.ltr_legacy", "hite_tpu_torch.ops.eahelitron",
+    "hite_tpu_torch.parallel.multihost", "hite_tpu_torch.pipeline.rnaseq",
+    "hite_tpu_torch.pipeline.pan", "hite_tpu_torch.scripts.pan_run",
 ]
 
 
@@ -147,6 +149,19 @@ def test_main_raises_without_gpu(monkeypatch, tmp_path):
     fa.write_text(">chr1\n" + "ACGT" * 100 + "\n")
     with pytest.raises(RuntimeError, match="GPU"):
         main(["--genome", str(fa), "--out_dir", str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
+
+
+def test_pan_main_raises_without_gpu(monkeypatch, tmp_path):
+    """The pan CLI reads its genomes onto the card unless told "cpu"."""
+    from hite_tpu_torch.pipeline.pan import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "g").mkdir()
+    (tmp_path / "g" / "a.fa").write_text(">chr1\n" + "ACGT" * 100 + "\n")
+    with pytest.raises(RuntimeError, match="GPU"):
+        main(["--pan_genomes_dir", str(tmp_path / "g"), "--out_dir",
+              str(tmp_path / "o"), "--skip_analyze", "1"])
     assert not (tmp_path / "o").exists()
 
 

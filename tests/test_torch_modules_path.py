@@ -304,16 +304,23 @@ def test_lcv_gate_and_tail_gate(small_genomes):
 
 
 def test_gate_helitron_rejects_eahelitron(small_genomes):
-    """The EAHelitron union is not ported: asking for it raises and never
-    carries on with the LCV gate alone."""
-    from hite_tpu_torch.config import PipelineConfig
+    """The EAHelitron union (`cfg.helitron.use_eahelitron`): once refused
+    by the port, it now runs and gates exactly as the JAX package does."""
+    import dataclasses
 
-    _, tg, ivs = small_genomes
-    cfg = PipelineConfig()
-    cfg = cfg.replace(helitron=cfg.helitron.__class__(use_eahelitron=True))
-    with pytest.raises(NotImplementedError):
-        __import__("hite_tpu_torch.pipeline.helitron", fromlist=["x"]
-                   ).gate_helitron(tg, ivs, cfg)
+    from hite_tpu.config import PipelineConfig as JaxConfig
+    from hite_tpu.pipeline import helitron as jh
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.pipeline import helitron as th
+
+    jg, tg, ivs = small_genomes
+    jc, tc = JaxConfig(), PipelineConfig()
+    jc = jc.replace(helitron=dataclasses.replace(jc.helitron,
+                                                 use_eahelitron=True))
+    tc = tc.replace(helitron=dataclasses.replace(tc.helitron,
+                                                 use_eahelitron=True))
+    assert np.array_equal(jh.gate_helitron(jg, ivs, jc),
+                          th.gate_helitron(tg, ivs, tc))
 
 
 # ---- the two scenarios of tests/test_rescue.py, on both packages

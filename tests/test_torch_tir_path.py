@@ -210,18 +210,44 @@ def test_chunked_libjoin(runs):
         assert sum(map(len, out[True, m])) > 0
 
 
+def _jax_helitron_stage(genome, coarse, cfg, gindex):
+    """The JAX `run_pipeline` closure `_modules_stage` for te_type
+    "helitron": the gate, one prefetch join, the verified module."""
+    from hite_tpu.pipeline.copies import CopyFinder
+    from hite_tpu.pipeline.helitron import (
+        gate_helitron, run_helitron_detection,
+    )
+    from hite_tpu.pipeline.verify import prepare_families
+
+    gated = gate_helitron(genome, coarse, cfg)
+    plan = prepare_families(genome, gated, cfg) if len(gated) else None
+    sets = None
+    if plan is not None and plan.prefetch_idx:
+        sets = CopyFinder(gindex).find_copies(
+            [plan.seqs[i] for i in plan.prefetch_idx], min_coverage=0.9,
+            max_copies=cfg.msa.max_copies)
+    return {"helitron": run_helitron_detection(
+        genome, coarse, cfg, gindex, gated=gated, plan=plan,
+        rep_copy_sets=sets)}
+
+
 def test_modules_stage_rejects_eahelitron(runs):
-    """The EAHelitron union (`cfg.helitron.use_eahelitron`) is not ported:
-    `modules_stage` raises rather than run the Helitron gate without it."""
+    """`modules_stage` with the EAHelitron union on
+    (`cfg.helitron.use_eahelitron`, te_type "helitron"): once refused by
+    the port, it now runs and equals the JAX package's stage, accepted
+    families, consensus, copy counts and low-copy set alike."""
     from hite_tpu_torch.pipeline.run import modules_stage
 
-    _, _, got = runs
-    cfg = got["cfg"].replace(
-        te_type="helitron",
-        helitron=dataclasses.replace(got["cfg"].helitron,
-                                     use_eahelitron=True))
-    with pytest.raises(NotImplementedError, match="EAHelitron"):
-        modules_stage(got["genome"], got["coarse"], cfg, got["gindex"])
+    _, ref, got = runs
+    out = []
+    for side, fn in ((ref, _jax_helitron_stage), (got, modules_stage)):
+        cfg = side["cfg"].replace(
+            te_type="helitron",
+            helitron=dataclasses.replace(side["cfg"].helitron,
+                                         use_eahelitron=True))
+        out.append(fn(side["genome"], side["coarse"], cfg, side["gindex"]))
+    assert list(out[0]) == list(out[1]) == ["helitron"]
+    _same_result(out[0]["helitron"], out[1]["helitron"])
 
 
 def test_chip_smoke_substrate_is_the_bench_substrate():
