@@ -2,10 +2,13 @@
 
 Phases, each printing its own lines:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: every CUDA kernel and the host chaining library, from the
+  2. build: every CUDA kernel and the host libraries, from the
      sources in this checkout, all compilers at once; registers and spills
      of each SW instantiation (ptxas) and the SASS instructions of its
      step loop per cell (cuobjdump), the nucleotide ones against PERF.md's;
+     and the native FASTA reader against the Python reader on the 8 Mbp
+     substrate written as a real assembly's FASTA (two contigs, CRLF,
+     wrapped lines, soft-masking, IUPAC codes);
   3. the SW kernel against its plain PyTorch version on the card, bit-exact
      on all 7 outputs, at the TIR gate, annotation, LTR and longer widths,
      a ragged batch and N-heavy rows, and at border shapes that force each
@@ -31,7 +34,9 @@ Phases, each printing its own lines:
      planted families, and launch sw and sw_protein; each of
      annotate.rescore's SW launches on its own inputs, and each kernel at
      that path's shapes; the main path again, warm, under the profiler
-     (device busy share, top device ops);
+     (device busy share, top device ops); then the same run from the
+     substrate's FASTA loaded packed (Genome.from_fasta(packed=True)),
+     every file byte-equal to the unpacked run's;
   6. both CNNs with the bundled parameters, cuda against the CPU: logits
      within the tests' tolerances, decisions equal;
   7. cuda against the CPU, which must agree exactly: the TIR path on a
@@ -67,8 +72,21 @@ Phases, each printing its own lines:
      the gate, cuda against the CPU, on the 240 kbp modules genome;
  12. the pan CLI: python -m hite_tpu_torch.pipeline.pan --skip_analyze 1
      in a subprocess with no device argument, equal to in-process main;
- 13. the kernel line (launches of the main and the pan path), the card
-     line, and the result line (last).
+ 13. the scale run at 100 Mbp (scripts.scale_run in process, the bench
+     substrate at scale 12, padded to 2^27): the chunked self-join, the
+     chunked copy join and the LTR chunk grid must each run (chunk counts
+     printed), annotation F1 >= 0.90, every planted TIR, SINE and LTR
+     family found, BM_RM2 present = the families found (the Helitron
+     families the JAX package also loses, listed); wall, Mbp/s, stage map,
+     peak RSS, peak device memory and
+     the sampled device busy share; every SW launch held against the
+     plain version on its own inputs;
+ 14. the hard 8 Mbp substrate through run_pipeline (F1 >= 0.90, BM_RM2
+     11/11; TP/FP/FN beside the JAX package's record), and the coarse
+     "pairs" and the segments copy mapper, cuda against the CPU, on the
+     240 kbp modules genome;
+ 15. the kernel line (launches of the main, pan and scale paths), the
+     card line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
 Detailed numbers go to smoke_out/chip_smoke.json, the runs' output files
@@ -510,41 +528,29 @@ def _sine_te(rng, interior):
                            np.zeros(14, np.uint8)])
 
 
-def build_bench_genome(length: int):
-    """The bench substrate (clean): planted TIR, Helitron, SINE and LTR
-    families on a seed-7 random background.  Returns (flat codes,
-    {"TIR" | "Helitron" | "SINE" | "LTR": {family index: [(start, end) of
-    each planted copy]}}, {bench family name: unmutated element codes})."""
-    rng = np.random.default_rng(7)
-    bg = rng.integers(0, 4, length).astype(np.uint8)
-    plant = make_planter(bg, rng)
-    fams = {"TIR": {}, "Helitron": {}, "SINE": {}, "LTR": {}}
-    seqs = {}
-    prefix = {"TIR": "TIR", "Helitron": "HEL", "SINE": "SINE", "LTR": "LTR"}
+CLASS_OF = {"TIR": "TIR", "HEL": "Helitron", "SINE": "SINE", "LTR": "LTR"}
 
-    def record(cls, f, te, starts):
-        fams[cls][f] = [(s, s + len(te)) for s in starts]
-        seqs[f"{prefix[cls]}_{f}"] = te
 
-    for f in range(3):
-        n, interior = ((20, 460), (15, 900), (10, 1400))[f % 3]
-        te = _tir_te(rng, interior)
-        record("TIR", f, te, plant(te, n, tsd=5))
-    for f in range(2):
-        n, interior = ((8, 700), (8, 1200))[f % 2]
-        te = _helitron_te(rng, interior)
-        record("Helitron", f, te, plant(te, n, host_at=True))
-    for f in range(2):
-        n, interior = ((20, 280), (20, 420))[f % 2]
-        te = _sine_te(rng, interior)
-        record("SINE", f, te, plant(te, n, tsd=12))
-    for f in range(4):
-        n, ltr_len = ((4, 250), (4, 350), (4, 450), (4, 600))[f % 4]
-        t = rng.integers(0, 4, ltr_len).astype(np.uint8)
-        t[0], t[1], t[-2], t[-1] = 3, 2, 1, 0
-        te = np.concatenate([t, rng.integers(0, 4, 2200).astype(np.uint8), t])
-        record("LTR", f, te, plant(te, n, tsd=5, mut=0.01))
-    return bg, fams, seqs
+def bench_families(truth):
+    """{"TIR" | "Helitron" | "SINE" | "LTR": {family index: [(start, end)
+    of each planted copy]}} of a bench truth."""
+    fams = {c: {} for c in CLASS_OF.values()}
+    for (s, e), name in zip(truth["intervals"].tolist(), truth["names"]):
+        prefix, f = name.rsplit("_", 1)
+        fams[CLASS_OF[prefix]].setdefault(int(f), []).append((s, e))
+    return fams
+
+
+def build_bench_genome(length: int, hard: bool = False):
+    """The bench substrate (`scripts.pan_run.build_bench_genome`, seed 7):
+    planted TIR, Helitron, SINE and LTR families.  Returns (flat codes,
+    their bench_families, {bench family name: unmutated element
+    codes})."""
+    from hite_tpu_torch.scripts.pan_run import build_bench_genome as build
+
+    genome, truth = build(length, hard=hard, device="cpu")
+    return genome.flat[: genome.size], bench_families(truth), \
+        truth["families"]
 
 
 def small_genome():
@@ -1548,6 +1554,264 @@ def check_pan_cli() -> dict:
     return dict(seconds=secs, files=n)
 
 
+def fasta_bytes(bg, seed=5):
+    """The 8 Mbp substrate as a FASTA file's bytes in the forms real
+    assemblies come in: two contigs with descriptions, lines wrapped at
+    60, CRLF endings, soft-masked (lower-case) stretches and IUPAC codes
+    (R Y K M S W N) sprinkled in."""
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(b"ACGTN", np.uint8)[np.minimum(bg, 4)].copy()
+    for s in rng.integers(0, len(text) - 5000, 200):     # soft-masking
+        text[s : s + rng.integers(100, 5000)] |= 0x20
+    iupac = np.frombuffer(b"RYKMSWNrykmswn", np.uint8)
+    pos = rng.integers(0, len(text), 2000)
+    text[pos] = iupac[rng.integers(0, len(iupac), len(pos))]
+    out = []
+    half = len(text) // 2 + 17
+    for name, part in (("ctg1 assembled contig one", text[:half]),
+                       ("ctg2 assembled contig two", text[half:])):
+        out.append(b">" + name.encode() + b"\r\n")
+        n = len(part) // 60 * 60
+        body = np.concatenate([part[:n].reshape(-1, 60),
+                               np.tile(np.frombuffer(b"\r\n", np.uint8),
+                                       (n // 60, 1))], axis=1).tobytes()
+        out.append(body + part[n:].tobytes() + b"\r\n")
+    return b"".join(out)
+
+
+def check_native_fasta(bg) -> dict:
+    """The native FASTA reader (`native/fasta.cc`, built with the kernels)
+    against the Python reader on the 8 Mbp substrate written as a real
+    assembly's FASTA (fasta_bytes); `io.fasta.read_fasta` must take the
+    native reader."""
+    from hite_tpu_torch.io import fasta
+
+    path = os.path.join("smoke_out", "bench8_assembly.fa")
+    os.makedirs("smoke_out", exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(fasta_bytes(bg))
+    assert native_rt.available("fasta"), "the native FASTA reader did not load"
+    n0 = native_rt.CALLS["read_fasta"]
+    t0 = time.perf_counter()
+    nat = fasta.read_fasta(path)
+    t_nat = time.perf_counter() - t0
+    assert native_rt.CALLS["read_fasta"] == n0 + 1, \
+        "io.fasta.read_fasta did not take the native reader"
+    t0 = time.perf_counter()
+    py = fasta.read_fasta_py(path)
+    t_py = time.perf_counter() - t0
+    assert list(nat) == list(py) == ["ctg1", "ctg2"], (list(nat), list(py))
+    assert all(np.array_equal(nat[k], py[k]) for k in py)
+    total = sum(len(v) for v in nat.values())
+    assert total == len(bg), (total, len(bg))
+    size = os.path.getsize(path)
+    print(f"native fasta: {size} bytes (2 contigs, CRLF, wrapped at 60, "
+          f"soft-masked, IUPAC codes): native reader {t_nat:.3f} s, Python "
+          f"reader {t_py:.3f} s ({t_py / t_nat:.1f}x); {total} bp, arrays "
+          "equal; io.fasta.read_fasta took the native reader")
+    os.remove(path)
+    return dict(bytes=size, native_s=t_nat, python_s=t_py, bp=total)
+
+
+def check_packed(bg, main_dir) -> dict:
+    """The packed host tier at 8 Mbp: Genome.from_fasta(packed=True) ->
+    run_pipeline(PipelineConfig(annotate=True)) on cuda; every output file
+    byte-equal to the unpacked main path's (main_dir)."""
+    from hite_tpu_torch.config import PipelineConfig
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.io.fasta import write_fasta
+    from hite_tpu_torch.ops.pack2 import PackedFlat
+    from hite_tpu_torch.pipeline.coarse import CoarseParams
+    from hite_tpu_torch.pipeline.run import run_pipeline
+
+    path = os.path.join("smoke_out", "bench8.fa")
+    write_fasta(path, {"chr1": bg})
+    out = os.path.join("smoke_out", "packed")
+    shutil.rmtree(out, ignore_errors=True)
+    genome = Genome.from_fasta(path, packed=True, device="cuda")
+    assert isinstance(genome.flat, PackedFlat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_pipeline(genome, PipelineConfig(annotate=True), out_dir=out,
+                 coarse_params=CoarseParams())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert isinstance(genome.masked, PackedFlat)
+    names = same_files(main_dir, out)
+    per_bp = {k: getattr(genome, k).nbytes / len(getattr(genome, k))
+              for k in ("flat", "masked")}
+    print(f"packed 8 Mbp: run_pipeline on Genome.from_fasta(packed=True) "
+          f"{wall:.2f} s; host bytes/bp flat {per_bp['flat']:.4f}, masked "
+          f"{per_bp['masked']:.4f} (1.0 unpacked); {len(names)} files "
+          f"byte-equal to the unpacked main path's: {names}")
+    os.remove(path)
+    return dict(wall_s=wall, bytes_per_bp=per_bp, files=names)
+
+
+def scale_phase(sass, mbp=100) -> dict:
+    """The scale run (`scripts.scale_run`, in process) at `mbp` Mbp on
+    cuda: the chunked self-join, the chunked copy join and the LTR chunk
+    grid must all run, annotation F1 >= 0.90, and every planted TIR, SINE
+    and LTR family must be found (BM_RM2 present = the families found;
+    the Helitron families lost are the JAX package's loss too, see the
+    assertion); every SW launch is recorded and held against the plain
+    version on its own inputs."""
+    from hite_tpu_torch.scripts import pan_run, scale_run
+
+    out = os.path.join("smoke_out", "scale")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    genome, truth, packed = scale_run.build(mbp, device="cuda")
+    print(f"scale run: built {mbp} Mbp ({genome.size} bp, "
+          f"{len(truth['intervals'])} planted copies of "
+          f"{len(truth['families'])} families) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kernels.reset_launches()
+    native_rt.CALLS["fmea_chain"] = 0
+    with RecordSW() as rec:
+        record, result = scale_run.run(genome, truth, out, packed)
+    launches = dict(kernels.LAUNCHES)
+    shapes = {k: {str(s): n for s, n in v.items()}
+              for k, v in kernels.LAUNCH_SHAPES.items()}
+    chain_calls = native_rt.CALLS["fmea_chain"]
+    for k, v in record["stages"].items():
+        print(f"scale run stage {k}: {v:.3f} s")
+    acc = record["accuracy"]
+    rm2 = acc["BM_RM2"]
+    print(f"scale run: wall {record['wall_s']:.2f} s, "
+          f"{record['mbp_per_s']:.4f} Mbp/s; chunks {record['chunks']}; "
+          f"peak RSS {record['peak_rss_gb']:.2f} GB, peak device memory "
+          f"{record['peak_device_gb']:.2f} GB; device busy (sampled "
+          f"utilization, {record['busy_samples']} samples) "
+          f"{record['device_busy_sampled']}; library "
+          f"{record['library_entries']} entries, annotation "
+          f"{record['annotation_hits']} hits; F1 {acc['F1']} (sensitivity "
+          f"{acc['sensitivity']} precision {acc['precision']}; " + ", ".join(
+              f"{k} {v}" for k, v in acc.items() if k.startswith("sens_"))
+          + f"); BM_RM2 {rm2}; sw launches {launches['sw']}, sw_protein "
+          f"{launches['sw_protein']}; native chain calls {chain_calls}")
+    # planted families without a library entry covering >= 80% of them
+    cfg, _params = scale_run.run_config()
+    entries = pan_run.family_entries(result.libs["merged"],
+                                     truth["families"], cfg, "cuda")
+    missing = sorted(f for f, e in entries.items() if not e)
+    n_hel = sum(f.startswith("HEL_") for f in truth["families"])
+    print(f"scale run: planted families without a library entry: {missing}"
+          f"; Helitron families found {n_hel - len(missing)} of {n_hel}")
+    assert all(record["chunks"][k] > 0 for k in scale_run.CHUNK_COUNTERS), \
+        f"a chunked branch never ran: {record['chunks']}"
+    assert acc["F1"] >= 0.90, f"scale run F1 {acc['F1']} below 0.90"
+    # every TIR, SINE and LTR family is found; Helitron families of the
+    # bench template share their head and tail, and the JAX package's
+    # Helitron module accepts 18 of 24 such families on 4 Mbp as well, the
+    # same 18 as the port (tests/test_torch_scale.py
+    # helitron_families_parity; ROADMAP queue 3)
+    assert all(f.startswith("HEL_") for f in missing), missing
+    assert rm2["total"] == len(truth["families"]), rm2
+    assert rm2["present"] == rm2["total"] - len(missing), (rm2, missing)
+    assert launches["sw"] > 0, "the scale run never launched sw"
+    assert len(rec.calls) == launches["sw"] + launches["sw_protein"]
+    rows = check_recorded(rec.calls, sass, "scale run")
+    del rec, result, genome
+    record.update(launches=launches, launch_shapes=shapes,
+                  chain_calls=chain_calls, sw_rows=rows)
+    return record
+
+
+def hard_phase() -> dict:
+    """The hard 8 Mbp substrate (truncated copies, solo LTRs, a nested
+    TIR, tandem arrays) through run_pipeline on cuda with bench.py's
+    config; its accuracy beside the JAX package's recorded one."""
+    from hite_tpu_torch.pipeline.run import run_pipeline
+    from hite_tpu_torch.scripts import pan_run
+
+    genome, truth = pan_run.build_bench_genome(8_000_000, hard=True,
+                                               device="cuda")
+    cfg, params = pan_run.pan_config()
+    out = os.path.join("smoke_out", "hard")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_pipeline(genome, cfg, out_dir=out, coarse_params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = pan_run.accuracy_metrics(genome, res, truth, cfg)
+    rec = {k: HARD_RECORDED[k] for k in ("TP", "FP", "FN", "F1")}
+    same = {k: acc[k] == v for k, v in rec.items()}
+    print(f"hard 8 Mbp: run_pipeline {wall:.2f} s; {len(truth['intervals'])}"
+          f" planted spans; library {len(res.libs['merged'])} entries; TP "
+          f"{acc['TP']} FP {acc['FP']} FN {acc['FN']} F1 {acc['F1']} "
+          f"(sensitivity {acc['sensitivity']} precision {acc['precision']});"
+          f" BM_RM2 {acc['BM_RM2']}; the JAX package's record "
+          f"(BENCH_r05.json hard_accuracy): TP 173218 FP 3215 FN 1340 F1 "
+          f"0.987, BM_RM2 11/11 present; equal {same}")
+    assert acc["F1"] >= 0.90, f"hard substrate F1 {acc['F1']} below 0.90"
+    assert acc["BM_RM2"]["present"] == acc["BM_RM2"]["total"] == 11, \
+        acc["BM_RM2"]
+    return dict(wall_s=wall, accuracy=acc, equal_to_record=same,
+                library=len(res.libs["merged"]))
+
+
+# BENCH_r05.json "hard_accuracy": the JAX package's hard 8 Mbp result
+HARD_RECORDED = dict(TP=173218, FP=3215, FN=1340, F1=0.987)
+
+
+def strategies(device):
+    """The off-default strategies on the 240 kbp modules genome: coarse
+    "pairs" (seg_len 65536, pair_batch 8) and the segments copy mapper on
+    the first 64 candidates it finds."""
+    from hite_tpu_torch.config import AlignConfig
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.pipeline.coarse import CoarseParams, coarse_discover
+    from hite_tpu_torch.pipeline.copies import CopyFinder, GenomeIndex
+
+    genome = Genome.from_dict({"chr1": small_modules_genome()},
+                              device=device)
+    cfg = AlignConfig(fixed_extend_base_threshold=2000)
+    iv = coarse_discover(genome, cfg, CoarseParams(
+        seg_len=65_536, pair_batch=8, strategy="pairs"), use_masked=False)
+    cands = [genome.extract(int(s), int(e)) for s, e in iv[:64]]
+    hits = CopyFinder(GenomeIndex(genome, cfg), strategy="segments"
+                      ).find_copies(cands, min_coverage=0.9)
+    return iv, [[(h.start, h.end, h.strand, h.nseeds) for h in hs]
+                for hs in hits]
+
+
+def check_strategies() -> dict:
+    t0 = time.perf_counter()
+    iv_gpu, hits_gpu = strategies("cuda")
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    iv_cpu, hits_cpu = strategies("cpu")
+    t_cpu = time.perf_counter() - t0
+    assert np.array_equal(iv_gpu, iv_cpu), "coarse pairs: cuda != cpu"
+    assert hits_gpu == hits_cpu, "segments copy mapper: cuda != cpu"
+    assert len(iv_gpu) > 0 and any(hits_gpu)
+    n_hits = sum(len(h) for h in hits_gpu)
+    print(f"strategies (240 kbp modules genome): coarse 'pairs' "
+          f"{len(iv_gpu)} intervals and CopyFinder(strategy='segments') "
+          f"{n_hits} hits for {len(hits_gpu)} candidates, cuda == cpu "
+          f"(cuda {t_gpu:.1f} s, cpu {t_cpu:.1f} s)")
+    return dict(intervals=len(iv_gpu), hits=n_hits, cuda_s=t_gpu,
+                cpu_s=t_cpu)
+
+
+class Laps:
+    """Prints, and keeps in the report, each phase's seconds since the
+    previous mark (the script's time budget by phase)."""
+
+    def __init__(self, report):
+        self.t0 = self.last = time.perf_counter()
+        self.report = report.setdefault("phase_s", {})
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.report[name] = now - self.last
+        print(f"phase {name}: {now - self.last:.1f} s (script at "
+              f"{now - self.t0:.1f} s)", flush=True)
+        self.last = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1560,6 +1824,7 @@ def main() -> int:
           f"python {sys.version.split()[0]} "
           f"devices {torch.cuda.device_count()}")
     report["card"] = card
+    lap = Laps(report)
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # ---- build
@@ -1589,6 +1854,7 @@ def main() -> int:
     report["nucleotide_vs_recorded"] = {str(k): v
                                         for k, v in changed.items()}
 
+    lap("build")
     # ---- SW kernel vs plain, listed shapes, borders and forced variants
     rows = []
     for i, (label, B, La, Lb, nf) in enumerate(SW_SHAPES):
@@ -1639,6 +1905,7 @@ def main() -> int:
             "the fastest)")
     report["sw_sweep"] = sweep
 
+    lap("sw kernel checks and R sweep")
     # ---- protein mode (BLOSUM62 from the 32 x 32 shared-memory table)
     # against the plain version: the domain confirm's shapes and borders
     prot_rows = []
@@ -1673,9 +1940,11 @@ def main() -> int:
           f"{len(prot_borders)} border shapes, R 4 and 8, one band and "
           "banded")
 
+    lap("sw_protein checks")
     # ---- the TIR path at 8 Mbp on cuda (cold: the first path run)
     length = 8_000_000
     bg, truth, seqs = build_bench_genome(length)
+    report["native_fasta"] = check_native_fasta(bg)
     print(f"tir path: bench substrate {length} bp, seed 7, clean")
     hlog.STAGE_TIMES.clear()
     hlog.COUNTERS.clear()
@@ -1874,10 +2143,15 @@ def main() -> int:
         wall_s=warm, device_busy_s=busy_us / 1e6, stages=warm_stages,
         top_device_ops=[(e.key, e.self_device_time_total / 1e3, e.count)
                         for e in top])
-    del prof, bg
+    del prof
+    # ---- the packed host tier: the same run from a packed FASTA load
+    report["packed"] = check_packed(bg, main_dir)
+    del bg
 
+    lap("native fasta, tir path, main path, packed run")
     # ---- both CNNs with the bundled parameters, cuda against the CPU
     report["cnn"] = check_cnns()
+    lap("cnns")
 
     # ---- device vs CPU on small genomes (the CPU path is held against the
     # JAX package by the tests): the TIR path, the modules path with the
@@ -1913,12 +2187,15 @@ def main() -> int:
           f"rescued {res['cuda'][0]} of 2 low-copy candidates, "
           f"{kernels.LAUNCHES['sw_protein']} sw_protein launches")
     report["ltr6"] = check_ltr6()
+    lap("small genomes cuda vs cpu")
     report["legacy_ltr"] = check_legacy()
     report["cli"] = check_cli()
+    lap("legacy ltr and cli")
 
     # ---- the pan path at 3 x 8 Mbp, its SW launches on their own inputs
     pan = pan_path(sass)
     report["pan_path"] = pan
+    lap("pan path")
     # ---- cuda against the CPU on the small pan genomes, two ranks on the
     # one card against one, the EAHelitron gate, the pan CLI
     report["pan_small"] = check_small_pan()
@@ -1926,23 +2203,34 @@ def main() -> int:
         os.path.join("smoke_out", "pan_small_cuda", "pan"))
     report["eahelitron"] = check_eahelitron()
     report["pan_cli"] = check_pan_cli()
+    lap("small pan, two ranks, eahelitron, pan cli")
+    # ---- the scale run at 100 Mbp through every chunked branch, the hard
+    # 8 Mbp substrate, and the off-default strategies
+    scale = scale_phase(sass)
+    report["scale_run"] = scale
+    lap("scale run")
+    report["hard"] = hard_phase()
+    report["strategies"] = check_strategies()
+    lap("hard substrate and strategies")
 
     # ---- kernel line: time of each kernel weighted over the launches of
-    # the main path and the pan path (device time from the profiler where
+    # the main, pan and scale paths (device time from the profiler where
     # it saw the kernel, else the event time) and of the bound (the
     # recurrence's int32 operations at the int32 rate); `launches` is the
-    # two paths' counts together, each also listed by path
+    # paths' counts together, each also listed by path
     entries = []
     for kname, replaces, checks in (
             ("sw", "hite_tpu/ops/terminal_pallas.py:47",
              rows + borders + rescore_rows),
             ("sw_protein", "hite_tpu/ops/terminal.py:157",
              prot_rows + prot_borders)):
-        mr = main_rows[kname] + pan["sw_rows"][kname]
+        mr = (main_rows[kname] + pan["sw_rows"][kname]
+              + scale["sw_rows"][kname])
         tot = sum(r["launches"] for r in mr)
         wavg = lambda key: sum(r[key] * r["launches"] for r in mr) / tot
         by_path = {"main": launches[kname],
-                   "pan": pan["launches"][kname]}
+                   "pan": pan["launches"][kname],
+                   "scale": scale["launches"][kname]}
         entries.append({
             "name": kname, "route": "cuda",
             "source": "hite_tpu_torch/csrc/sw.cu", "replaces": replaces,

@@ -6,8 +6,9 @@ to a multiple of `pad_to`), explicit contig tables, and a masked copy.
 The genome carries its torch device; device buffers (the N-padded flat
 upload, the sorted join stream) are cached under the JAX package's keys
 and dropped by `mask_intervals` when they derive from the masked copy.
-Genomes over 512 Mbp (the JAX package's 2-bit `PackedFlat` tier) are not
-handled by this port yet.
+Past `HOST_PACK_THRESHOLD` the host arrays are 2-bit `PackedFlat`s
+(`ops.pack2`, 0.375 bytes/bp), which every host consumer reads by slices
+and masks by N writes; the device unpacks them on upload.
 """
 
 from __future__ import annotations
@@ -20,21 +21,26 @@ import torch
 
 from hite_tpu_torch.device import resolve_device
 from hite_tpu_torch.io.fasta import CODE_N, decode_seq, encode_seq, read_fasta
+from hite_tpu_torch.ops.pack2 import PackedFlat, unpack_device_chunked
 
 # Spacer between contigs: longer than any seed/extension reach so
 # alignments can never bridge two contigs (N never matches).
 CONTIG_SPACER = 64
+
+# Host arrays above this pack to 2 bits + N mask (from_fasta's auto tier).
+HOST_PACK_THRESHOLD = 512 * 1024 * 1024
 
 
 @dataclass
 class Genome:
     """Flat-coded genome with contig maps (see module doc)."""
 
-    flat: np.ndarray
+    flat: Union[np.ndarray, PackedFlat]
     names: List[str]
     starts: np.ndarray          # int64 [n_contigs]
     lengths: np.ndarray         # int64 [n_contigs]
-    masked: Optional[np.ndarray] = None  # flat copy, masked spans set to N
+    # flat copy with masked spans set to N
+    masked: Optional[Union[np.ndarray, PackedFlat]] = None
     device: torch.device = field(default_factory=lambda: torch.device("cpu"),
                                  compare=False)
     _device_cache: Dict = field(default_factory=dict, repr=False, compare=False)
@@ -61,9 +67,25 @@ class Genome:
 
     @classmethod
     def from_fasta(cls, path: str, pad_to: int = 1024,
+                   packed: Optional[bool] = None,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> "Genome":
-        return cls.from_dict(read_fasta(path), pad_to=pad_to, device=device)
+        """Load a FASTA.  ``packed=None`` packs the host arrays past
+        HOST_PACK_THRESHOLD bp (the reference's >= 2 GB tier,
+        main.py:328-329); True / False force it either way."""
+        g = cls.from_dict(read_fasta(path), pad_to=pad_to, device=device)
+        if packed or (packed is None and len(g.flat) > HOST_PACK_THRESHOLD):
+            g.pack_host()
+        return g
+
+    def pack_host(self) -> None:
+        """Convert the host arrays to 2-bit + N mask (`PackedFlat`).  Every
+        host consumer reads slices and writes N masks, which PackedFlat
+        provides; `segment_batches` unpacks one batch at a time."""
+        if isinstance(self.flat, np.ndarray):
+            self.flat = PackedFlat.from_uint8(self.flat)
+        if isinstance(self.masked, np.ndarray):
+            self.masked = PackedFlat.from_uint8(self.masked)
 
     # ------------------------------------------------------------ coordinates
     @property
@@ -90,13 +112,30 @@ class Genome:
                 & (local + (end - start) <= self.lengths[ci]))
 
     # --------------------------------------------------------------- segments
+    def segment_view(self, seg_length: int,
+                     use_masked: bool = False) -> np.ndarray:
+        """[n_segs, seg_length] host view (flat N-padded to a multiple).
+        A packed genome unpacks WHOLE here (1 byte/bp transient); batch
+        consumers take `segment_batches`."""
+        src = (self.masked if (use_masked and self.masked is not None)
+               else self.flat)
+        if isinstance(src, PackedFlat):
+            src = src.unpack_all()
+        L = len(src)
+        n_segs = (L + seg_length - 1) // seg_length
+        if n_segs * seg_length != L:
+            pad = np.full(n_segs * seg_length - L, CODE_N, dtype=np.uint8)
+            src = np.concatenate([src, pad])
+        return src.reshape(n_segs, seg_length)
+
     def n_segments(self, seg_length: int) -> int:
         return (len(self.flat) + seg_length - 1) // seg_length
 
     def segment_batches(self, seg_length: int, batch: int,
                         use_masked: bool = False):
-        """Yield (seg0, [batch, seg_length]) host chunks; the final batch
-        is N-padded to full size."""
+        """Yield (seg0, [batch, seg_length]) host chunks, a packed genome
+        unpacked one batch at a time; the final batch is N-padded to full
+        size."""
         src = (self.masked if (use_masked and self.masked is not None)
                else self.flat)
         n_segs = self.n_segments(seg_length)
@@ -137,7 +176,13 @@ class Genome:
     def device_flat_padded(self, use_masked: bool = False
                            ) -> Tuple[torch.Tensor, int]:
         """Device-resident flat codes, N-padded to a power of two (at least
-        65,536), cached per source.  Returns (uint8 [Lp] tensor, true L)."""
+        65,536), cached per source.  Returns (uint8 [Lp] tensor, true L).
+
+        A packed genome uploads its packed bytes and N mask and unpacks
+        them on the device (`ops.pack2`).  An unpacked one uploads its
+        uint8 codes as they are: the result is the same tensor, and the
+        JAX package packs first only to cut the bytes its remote TPU link
+        carries, which a local PCIe copy of 1 byte/bp does not need."""
         src = (self.masked if (use_masked and self.masked is not None)
                else self.flat)
         key = ("flat_pow2", src is self.masked)
@@ -145,9 +190,18 @@ class Genome:
         ent = self._device_cache.get(key)
         if ent is None:
             Lp = max(65_536, 1 << (L - 1).bit_length())
-            buf = np.full(Lp, CODE_N, dtype=np.uint8)
-            buf[:L] = src
-            ent = torch.from_numpy(buf).to(self.device)
+            if isinstance(src, PackedFlat):
+                # L is a multiple of pad_to (1024): no partial-byte seam;
+                # the pad is all N (mask bits set)
+                packed = np.zeros(Lp // 4, np.uint8)
+                packed[: len(src.packed)] = src.packed
+                nmask = np.full(Lp // 8, 0xFF, np.uint8)
+                nmask[: len(src.nmask)] = src.nmask
+                ent = unpack_device_chunked(packed, nmask, self.device)
+            else:
+                buf = np.full(Lp, CODE_N, dtype=np.uint8)
+                buf[:L] = src
+                ent = torch.from_numpy(buf).to(self.device)
             self._device_cache[key] = ent
         return ent, L
 

@@ -2,7 +2,9 @@
 
 Sequences are numpy ``uint8`` code arrays (A=0, C=1, G=2, T=3, N/other=4)
 ready to be placed on the device.  A copy of the JAX package's
-`io/fasta.py` with its pure-Python reader.
+`io/fasta.py`: `read_fasta` takes the native mmap reader
+(`native/fasta.cc`) when it builds, as the JAX package does, and the
+pure-Python reader (`read_fasta_py`, the oracle) otherwise.
 """
 
 from __future__ import annotations
@@ -47,6 +49,16 @@ def revcomp(codes: np.ndarray) -> np.ndarray:
 def read_fasta(path: str) -> Dict[str, np.ndarray]:
     """Read a FASTA file into an ordered {name: uint8 code array} dict
     (name = first whitespace-separated token of the header)."""
+    from hite_tpu_torch.native import runtime
+
+    if runtime.available("fasta"):
+        return runtime.read_fasta(path)
+    return read_fasta_py(path)
+
+
+def read_fasta_py(path: str) -> Dict[str, np.ndarray]:
+    """The pure-Python reader (line by line, trailing whitespace
+    stripped, blank lines skipped)."""
     seqs: Dict[str, np.ndarray] = {}
     name = None
     parts: List[bytes] = []

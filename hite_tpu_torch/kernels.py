@@ -1,10 +1,10 @@
-"""Build and load the port's compiled code: CUDA kernels and host chaining.
+"""Build and load the port's compiled code: CUDA kernels and host libraries.
 
 Sources live in the package: `csrc/*.cu` (kernels for the card, `sm_90a`)
-and `native/chain.cc` (host FMEA chaining).  Each compiles at first use
-into `_build/` beside them (listed in .gitignore): `nvcc` for the CUDA
-sources, `g++` for the host library, started together so the slowest one
-sets the build time.  Both expose plain C interfaces loaded with ctypes;
+and `native/*.cc` (host FMEA chaining, the FASTA reader and interval
+merge).  Each compiles at first use into `_build/` beside them (listed in
+.gitignore): `nvcc` for the CUDA sources, `g++` for the host libraries,
+all started together so the slowest one sets the build time.  Both expose plain C interfaces loaded with ctypes;
 no source includes PyTorch's headers, so a build takes seconds.
 
 `LAUNCHES` counts kernel launches, one per launch, bumped only by the
@@ -31,7 +31,8 @@ LAUNCHES: Dict[str, int] = {"sw": 0, "sw_protein": 0}
 LAUNCH_SHAPES: Dict[str, Dict[tuple, int]] = {"sw": {}, "sw_protein": {}}
 
 _CUDA_SOURCES = {"sw": os.path.join(_PKG, "csrc", "sw.cu")}
-_CHAIN_SOURCE = os.path.join(_PKG, "native", "chain.cc")
+HOST_SOURCES = {name: os.path.join(_PKG, "native", f"{name}.cc")
+                 for name in ("chain", "fasta")}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -71,26 +72,27 @@ def _fresh(out: str, src: str) -> bool:
 
 
 def _command(name: str, tmp: str) -> List[str]:
-    if name == "chain":
+    if name in HOST_SOURCES:
         cxx = os.environ.get("CXX", "g++")
         return [cxx, "-O3", "-fPIC", "-std=c++17", "-shared", "-o", tmp,
-                _CHAIN_SOURCE]
+                HOST_SOURCES[name]]
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-o", tmp, _CUDA_SOURCES[name]]
 
 
 def _source(name: str) -> str:
-    return _CHAIN_SOURCE if name == "chain" else _CUDA_SOURCES[name]
+    return HOST_SOURCES.get(name) or _CUDA_SOURCES[name]
 
 
 def build(names: Optional[List[str]] = None, force: bool = False
           ) -> Dict[str, float]:
-    """Compile the named libraries (default: every CUDA kernel + chain),
+    """Compile the named libraries (default: every CUDA kernel and host
+    library),
     all compilers running at once.  Returns {name: seconds}; the
     compilers' output (ptxas register/spill report) lands in BUILD_LOG.
     Raises if any compile fails."""
-    names = list(names or (list(_CUDA_SOURCES) + ["chain"]))
+    names = list(names or (list(_CUDA_SOURCES) + list(HOST_SOURCES)))
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs: List[Tuple[str, str, subprocess.Popen, float]] = []
     for name in names:

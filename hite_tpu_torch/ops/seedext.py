@@ -16,7 +16,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from hite_tpu_torch.ops.kmer import KmerIndex, lookup
+from hite_tpu_torch.ops.kmer import KmerIndex, bucket_shift_for, lookup
 from hite_tpu_torch.ops.selfjoin import compact, pack2, shift1
 
 INT32_MAX = 2**31 - 1
@@ -51,8 +51,10 @@ def pair_hsps(
     tile_entries: int = 32_768,
 ) -> HSPs:
     """HSPs of each query row q_kmers int32 [N, Qk] (-1 invalid) against
-    one sorted subject index [n] (any alphabet: the k-mer index has no
-    prefix buckets).  `exclude_self` drops qpos == spos seed matches."""
+    one sorted subject index [n] (any alphabet), or row by row against an
+    index [N, n].  An index with prefix buckets is searched as the JAX
+    package searches it.  `exclude_self` (a bool, or bool [N] a row)
+    drops qpos == spos seed matches."""
     N, Qk = q_kmers.shape
     dev = q_kmers.device
     i32 = torch.int32
@@ -60,9 +62,12 @@ def pair_hsps(
     qpos = torch.arange(Q, dtype=i32, device=dev) * stride
     qk = q_kmers[:, qpos.long()]
 
-    spos, valid = lookup(subj_index, qk, max_hits)          # [N, Q, H]
+    spos, valid = lookup(subj_index, qk, max_hits,
+                         bucket_shift=bucket_shift_for(k))  # [N, Q, H]
     qpos_b = qpos[:, None].expand(Q, max_hits)
     excl = torch.as_tensor(exclude_self, dtype=torch.bool, device=dev)
+    if excl.dim() == 1:
+        excl = excl[:, None, None]
     valid = valid & ~(excl & (qpos_b == spos))
 
     n_subj = subj_index.codes.shape[-1]

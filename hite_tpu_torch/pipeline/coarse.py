@@ -1,28 +1,34 @@
 """Coarse-boundary de-novo repeat discovery (reference stage "FMEA").
 
-Counterpart of the JAX `pipeline/coarse.py`, selfjoin strategy: the
-whole-genome k-mer self-join finds every interval that aligns somewhere
-else, HSPs are chained exactly on the host, and candidates are deduped
-with 10 bp rounding + >=95% mutual-overlap merging (reference
-`Util.py:4344-4395`).  Genomes past `max_selfjoin_bp` run as overlapping
-chunks on the chunk grid the JAX package uses.  The segment-pair
-("pairs") strategy and the mesh path are not ported.
+Counterpart of the JAX `pipeline/coarse.py`.  Strategy "selfjoin" (the
+default): the whole-genome k-mer self-join finds every interval that
+aligns somewhere else, HSPs are chained exactly on the host, and
+candidates are deduped with 10 bp rounding + >=95% mutual-overlap merging
+(reference `Util.py:4344-4395`).  Genomes past `max_selfjoin_bp` run as
+overlapping chunks on the chunk grid the JAX package uses.  Strategy
+"pairs" (an explicit opt-in): every live segment pair (i, j <= i) runs
+the seed -> HSP -> chain kernels (`ops.seedext`, `ops.chain`) in batches
+of `pair_batch` pairs.  The mesh path is not ported.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hite_tpu_torch.config import AlignConfig
 from hite_tpu_torch.genome import Genome
-from hite_tpu_torch.ops.chain import chain_hsps_host
+from hite_tpu_torch.ops import encode as enc
+from hite_tpu_torch.ops.chain import Chains, chain_hsps, chain_hsps_host
+from hite_tpu_torch.ops.kmer import KmerIndex, build_index
+from hite_tpu_torch.ops.seedext import pair_hsps
 from hite_tpu_torch.ops.selfjoin import selfjoin_scan_packed, selfjoin_sorted
 from hite_tpu_torch.utils import intervals as iv
-from hite_tpu_torch.utils.log import logger, stage_timer
+from hite_tpu_torch.utils.log import count, logger, stage_timer
 
 
 @dataclass(frozen=True)
@@ -45,6 +51,109 @@ class CoarseParams:
     max_budget_slices: int = 64
     hard_budget_slices: int = 1024
     max_selfjoin_bp: int = 1 << 26
+
+
+@functools.lru_cache(maxsize=32)
+def get_pair_aligner(cfg: AlignConfig, params: CoarseParams
+                     ) -> "PairAligner":
+    """One aligner a (config, geometry), as the JAX package caches it."""
+    return PairAligner(cfg, params)
+
+
+class PairAligner:
+    """Batched segment-pair aligner over per-segment sorted indexes."""
+
+    def __init__(self, cfg: AlignConfig, params: CoarseParams):
+        self.cfg = cfg
+        self.p = params
+
+    def prepare(self, segs: np.ndarray, device
+                ) -> Tuple[torch.Tensor, KmerIndex, KmerIndex]:
+        """Segments uint8 [n_segs, S] -> (their k-mer codes, the forward
+        and reverse-complement bucketed indexes), on `device`."""
+        k = self.cfg.kmer_size
+        segs_d = torch.from_numpy(segs).to(device)
+        return (enc.kmer_codes(segs_d, k),
+                build_index(segs_d, k, buckets=True),
+                build_index(enc.revcomp(segs_d), k, buckets=True))
+
+    def align_pairs(self, km: torch.Tensor, fwd: KmerIndex, rc: KmerIndex,
+                    pairs: np.ndarray) -> Tuple[Chains, Chains]:
+        """pairs int [B, 2] of (query seg, subject seg) -> the forward and
+        reverse-complement chains [B, max_chains] of each pair (a self
+        pair drops its own diagonal)."""
+        cfg, p = self.cfg, self.p
+        dev = km.device
+        bi = torch.from_numpy(np.ascontiguousarray(pairs[:, 0])).to(dev)
+        bj = torch.from_numpy(np.ascontiguousarray(pairs[:, 1])).to(dev)
+        hsp_kw = dict(k=cfg.kmer_size, stride=p.stride,
+                      max_hits=p.max_hits, diag_band=p.diag_band,
+                      run_gap=p.run_gap, min_seeds=p.min_seeds,
+                      min_hsp_len=cfg.min_hsp_len, max_hsps=p.max_hsps)
+        chain_kw = dict(extend_threshold=cfg.fixed_extend_base_threshold,
+                        max_chains=p.max_chains, min_len=80)
+        rows = lambda ix: KmerIndex(ix.codes[bj], ix.pos[bj], ix.buckets[bj])
+        q = km[bi]
+        fh = pair_hsps(q, rows(fwd), exclude_self=bi == bj, **hsp_kw)
+        rh = pair_hsps(q, rows(rc), exclude_self=False, **hsp_kw)
+        return chain_hsps(fh, **chain_kw), chain_hsps(rh, **chain_kw)
+
+
+def _chains_to_intervals(fc: Chains, rch: Chains, pairs: np.ndarray,
+                         seg_len: int) -> np.ndarray:
+    """Chain batches -> flat-coordinate candidate intervals [N, 2] (query
+    spans, then subject spans, forward chains before rc ones)."""
+    out: List[np.ndarray] = []
+    for chains, is_rc in ((fc, False), (rch, True)):
+        qs, qe, ss, se = (t.cpu().numpy() for t in
+                          (chains.qs, chains.qe, chains.ss, chains.se))
+        valid = chains.valid.cpu().numpy()          # [B, C]
+        if not valid.any():
+            continue
+        qoff = (pairs[:, 0] * seg_len)[:, None]
+        soff = (pairs[:, 1] * seg_len)[:, None]
+        if is_rc:
+            # the index was built on revcomp(segment): spans cover
+            # [p, p+k), so the base-coordinate length is seg_len
+            s0, s1 = seg_len - se, seg_len - ss
+        else:
+            s0, s1 = ss, se
+        b_idx, c_idx = np.nonzero(valid)
+        out.append(np.stack([(qs + qoff)[b_idx, c_idx],
+                             (qe + qoff)[b_idx, c_idx]], axis=1))
+        out.append(np.stack([(s0 + soff)[b_idx, c_idx],
+                             (s1 + soff)[b_idx, c_idx]], axis=1))
+    if not out:
+        return np.zeros((0, 2), dtype=np.int64)
+    return np.concatenate(out).astype(np.int64)
+
+
+def _pairs_intervals(genome: Genome, cfg: AlignConfig, p: CoarseParams,
+                     use_masked: bool) -> np.ndarray:
+    """Candidate intervals of every live segment pair (i, j <= i), batched
+    to `p.pair_batch` pairs (the last batch padded with its last pair)."""
+    segs = genome.segment_view(p.seg_len, use_masked=use_masked)
+    n_segs = segs.shape[0]
+    aligner = get_pair_aligner(cfg, p)
+    with stage_timer("coarse.prepare"):
+        km, fwd, rc = aligner.prepare(segs, genome.device)
+    # skip pairs where either side is (almost) fully masked
+    live = (segs < 4).mean(axis=1) >= 0.02
+    all_pairs = np.array(
+        [(i, j) for i in range(n_segs) for j in range(i + 1)
+         if live[i] and live[j]], dtype=np.int64).reshape(-1, 2)
+    cand: List[np.ndarray] = []
+    with stage_timer("coarse.align"):
+        for b0 in range(0, len(all_pairs), p.pair_batch):
+            batch = all_pairs[b0 : b0 + p.pair_batch]
+            pad = np.repeat(batch[-1:], p.pair_batch - len(batch), axis=0)
+            fc, rch = aligner.align_pairs(km, fwd, rc,
+                                          np.concatenate([batch, pad]))
+            n = len(batch)
+            cand.append(_chains_to_intervals(
+                Chains(*(t[:n] for t in fc)), Chains(*(t[:n] for t in rch)),
+                batch, p.seg_len))
+    return np.concatenate(cand) if cand else np.zeros((0, 2), np.int64)
 
 
 def _chunk_grid(L: int, C: int, halo: int) -> List[int]:
@@ -75,6 +184,7 @@ def _selfjoin_intervals(genome: Genome, cfg: AlignConfig, p: CoarseParams,
         return _selfjoin_chunk(flat_d, 0, cfg, p)
     out: List[np.ndarray] = []
     for c0 in _chunk_grid(L, C, halo):
+        count("coarse.selfjoin.chunks")
         got = _selfjoin_chunk(chunk_slice(flat_d, c0, C), c0, cfg, p)
         if len(got):
             out.append(got)
@@ -183,11 +293,13 @@ def coarse_discover(
 ) -> np.ndarray:
     """Candidate repeat intervals (flat coords): int64 [N, 2], deduped."""
     p = params or CoarseParams()
-    if p.strategy != "selfjoin":
-        raise NotImplementedError(
-            f"coarse strategy {p.strategy!r} is not ported; only 'selfjoin'")
-    intervals = _selfjoin_intervals(genome, cfg, p, use_masked,
-                                    halo=max_repeat_len)
+    if p.strategy == "selfjoin":
+        intervals = _selfjoin_intervals(genome, cfg, p, use_masked,
+                                        halo=max_repeat_len)
+    elif p.strategy == "pairs":
+        intervals = _pairs_intervals(genome, cfg, p, use_masked)
+    else:
+        raise ValueError(f"unknown coarse strategy {p.strategy!r}")
     return _dedup_intervals(intervals, genome, cfg, min_repeat_len,
                             max_repeat_len)
 

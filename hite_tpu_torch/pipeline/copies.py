@@ -1,34 +1,40 @@
 """Genome-wide full-length copy retrieval (minimap2 replacement).
 
-Counterpart of the JAX `pipeline/copies.py`, join strategy: each batch of
-candidates is mapped against the whole genome by ONE sort-merge k-mer join
-(`ops.libjoin`) — indexed against a genome stream sorted once and cached
-on the genome, or chunked with a halo past `max_libjoin_bp` — then chained
-exactly per (candidate, strand, contig) on the host; chains covering >=
-`min_coverage` of the candidate on both sides are its copies.  Candidates
-that share join k-mers are dealt into similarity waves so none starves of
-pairing slots.  The legacy "segments" mapper and the mesh path are not
-ported.
+Counterpart of the JAX `pipeline/copies.py`.  Strategy "join" (the
+default): each batch of candidates is mapped against the whole genome by
+ONE sort-merge k-mer join (`ops.libjoin`) — indexed against a genome
+stream sorted once and cached on the genome, or chunked with a halo past
+`max_libjoin_bp` — then chained exactly per (candidate, strand, contig)
+on the host; chains covering >= `min_coverage` of the candidate on both
+sides are its copies.  Candidates that share join k-mers are dealt into
+similarity waves so none starves of pairing slots.  Strategy "segments"
+(an explicit opt-in): the legacy mapper, every candidate against each
+genome segment's bucketed k-mer index (`ops.seedext`), chained on the
+device (`ops.chain.chain_hsps`), a block of segments at a time.  The
+mesh-sharded variant is not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hite_tpu_torch.config import AlignConfig
 from hite_tpu_torch.genome import Genome
-from hite_tpu_torch.ops.chain import chain_hsps_host
+from hite_tpu_torch.ops import encode as enc
+from hite_tpu_torch.ops.chain import Chains, chain_hsps, chain_hsps_host
+from hite_tpu_torch.ops.kmer import KmerIndex, build_index
 from hite_tpu_torch.ops.libjoin import (
     libjoin_genome_sorted, libjoin_pairs, libjoin_pairs_indexed,
     libjoin_scan_packed,
 )
-from hite_tpu_torch.pipeline.candidates import pad_rows
+from hite_tpu_torch.ops.seedext import pair_hsps
+from hite_tpu_torch.pipeline.candidates import pad_rows, pad_seqs
 from hite_tpu_torch.pipeline.coarse import chunk_slice
-from hite_tpu_torch.utils.log import logger
+from hite_tpu_torch.utils.log import count, logger
 
 
 @dataclass
@@ -42,8 +48,10 @@ class CopyHit:
 
 
 class GenomeIndex:
-    """Genome handle for copy retrieval (the join needs only the genome's
-    cached device upload)."""
+    """Genome handle for copy retrieval.  The join needs only the genome's
+    cached device upload; the segments mapper's per-segment sorted
+    indexes (forward and reverse complement, with prefix buckets) are
+    built on first access."""
 
     def __init__(self, genome: Genome, cfg: AlignConfig,
                  seg_len: int = 131_072, use_masked: bool = False):
@@ -51,17 +59,100 @@ class GenomeIndex:
         self.cfg = cfg
         self.seg_len = seg_len
         self.use_masked = use_masked
+        src = (genome.masked if (use_masked and genome.masked is not None)
+               else genome.flat)
+        self.n_segs = (len(src) + seg_len - 1) // seg_len
+        self._built = None
+
+    def _indexes(self) -> Tuple[KmerIndex, KmerIndex]:
+        if self._built is None:
+            segs = torch.from_numpy(self.genome.segment_view(
+                self.seg_len, use_masked=self.use_masked)).to(
+                    self.genome.device)
+            k = self.cfg.kmer_size
+            self._built = (build_index(segs, k, buckets=True),
+                           build_index(enc.revcomp(segs), k, buckets=True))
+        return self._built
+
+    @property
+    def fwd(self) -> KmerIndex:
+        return self._indexes()[0]
+
+    @property
+    def rc(self) -> KmerIndex:
+        return self._indexes()[1]
+
+
+def _segment(index: KmerIndex, s: int) -> KmerIndex:
+    return KmerIndex(index.codes[s], index.pos[s], index.buckets[s])
+
+
+def _map_batch(cfg: AlignConfig, cand_kms: torch.Tensor, fwd: KmerIndex,
+               rc: KmerIndex, *, stride: int, max_hits: int, diag_band: int,
+               run_gap: int, min_seeds: int, max_hsps: int,
+               max_chains: int) -> Tuple[Chains, Chains]:
+    """Candidate k-mer rows int32 [B, Qk] against ONE segment's forward
+    and reverse-complement indexes: the chains [B, max_chains] of each
+    strand (the JAX package's `_cached_map_batch`, vmapped there)."""
+    hsp_kw = dict(k=cfg.kmer_size, min_hsp_len=cfg.min_hsp_len,
+                  stride=stride, max_hits=max_hits, diag_band=diag_band,
+                  run_gap=run_gap, min_seeds=min_seeds, max_hsps=max_hsps)
+    chain_kw = dict(extend_threshold=cfg.fixed_extend_base_threshold,
+                    max_chains=max_chains, min_len=50)
+    fc = chain_hsps(pair_hsps(cand_kms, fwd, **hsp_kw), **chain_kw)
+    rch = chain_hsps(pair_hsps(cand_kms, rc, **hsp_kw), **chain_kw)
+    return fc, rch
+
+
+def _map_block(cfg: AlignConfig, cand_mat: torch.Tensor, gindex: GenomeIndex,
+               s0: int, seg_block: int, out_budget: int, **geom
+               ) -> Tuple[np.ndarray, int]:
+    """A candidate batch uint8 [B, W] against the segment block [s0, s0 +
+    seg_block): (the first `out_budget` valid chains as int32 [n, 8] rows
+    (cand, seg, strand, qs, qe, ss, se, nseeds), the count of valid
+    chains).  Rows run strand-major, then segment, candidate and chain,
+    the order of the JAX package's `_cached_map_block` compaction."""
+    cand_kms = enc.kmer_codes(cand_mat, cfg.kmer_size)
+    parts: List[List[torch.Tensor]] = [[], []]
+    for s in range(s0, s0 + seg_block):
+        fc, rch = _map_batch(cfg, cand_kms, _segment(gindex.fwd, s),
+                             _segment(gindex.rc, s), **geom)
+        for strand, ch in ((0, fc), (1, rch)):
+            B, C = ch.qs.shape
+            cand_i = torch.arange(B, dtype=torch.int32,
+                                  device=ch.qs.device)[:, None].expand(B, C)
+            row = torch.stack([cand_i, torch.full_like(cand_i, s),
+                               torch.full_like(cand_i, strand), ch.qs,
+                               ch.qe, ch.ss, ch.se, ch.nseeds], dim=-1)
+            parts[strand].append(row[ch.valid])
+    rows = torch.cat(parts[0] + parts[1]).cpu().numpy()
+    return rows[:out_budget], len(rows)
 
 
 class CopyFinder:
-    """Batched candidate -> genome copy mapping by sort-merge joins."""
+    """Batched candidate -> genome copy mapping: sort-merge joins
+    (strategy "join", the default) or the legacy per-segment mapper
+    (strategy "segments", an explicit opt-in; `stride`, `max_hits`,
+    `max_hsps` and `max_chains` are its kernel geometry)."""
 
-    def __init__(self, index: GenomeIndex, *, diag_band: int = 32,
-                 run_gap: int = 96, min_seeds: int = 4, fill_w: int = 8):
+    def __init__(self, index: GenomeIndex, *, stride: int = 1,
+                 max_hits: int = 8, diag_band: int = 32, run_gap: int = 96,
+                 min_seeds: int = 4, max_hsps: int = 1024,
+                 max_chains: int = 128, strategy: str = "join",
+                 fill_w: int = 8):
+        if strategy not in ("join", "segments"):
+            raise ValueError(f"unknown copy strategy {strategy!r}")
         self.index = index
+        self.strategy = strategy
         self.diag_band = diag_band
         self.run_gap = run_gap
         self.min_seeds = min_seeds
+        self._geom = dict(stride=stride, max_hits=max_hits,
+                          diag_band=diag_band, run_gap=run_gap,
+                          min_seeds=min_seeds, max_hsps=max_hsps,
+                          max_chains=max_chains)
+        self._seg_block = min(8, index.n_segs)
+        self._out_budget = 1 << 15
         self._join_slice = 1 << 20
         self._join_quota = 1 << 19
         self._join_budget = 1 << 20
@@ -79,9 +170,77 @@ class CopyFinder:
         `min_abs_len > 0` additionally keeps fragment hits of that size."""
         if not cand_seqs:
             return []
-        return self._find_copies_join(
-            cand_seqs, min_coverage=min_coverage, max_copies=max_copies,
-            max_len_ratio=max_len_ratio, min_abs_len=min_abs_len)
+        kw = dict(min_coverage=min_coverage, max_copies=max_copies,
+                  max_len_ratio=max_len_ratio, min_abs_len=min_abs_len)
+        if self.strategy == "segments":
+            return self._find_copies_segments(cand_seqs, **kw)
+        return self._find_copies_join(cand_seqs, **kw)
+
+    def _find_copies_segments(self, cand_seqs, *, min_coverage, max_copies,
+                              max_len_ratio, min_abs_len=0):
+        """Every candidate against each block of segments; chains covering
+        >= min_coverage of the candidate (or, with `min_abs_len`, fragment
+        chains of that size) are its copies."""
+        idx = self.index
+        cfg = idx.cfg
+        n_c = len(cand_seqs)
+        out: List[List[CopyHit]] = [[] for _ in cand_seqs]
+        mat, lens = pad_seqs(cand_seqs, n_rows=pad_rows(n_c, min_rows=4))
+        lens_f = np.maximum(lens[:n_c].astype(np.float64), 1)
+
+        def _collect(rows: np.ndarray) -> None:
+            cand, seg, strand = rows[:, 0], rows[:, 1], rows[:, 2]
+            qs, qe, ss, se, ns = (rows[:, i] for i in range(3, 8))
+            keep = cand < n_c
+            lf = lens_f[np.minimum(cand, n_c - 1)]
+            slen = se - ss
+            full = (((qe - qs) >= min_coverage * lf)
+                    & (slen >= min_coverage * lf)
+                    & (slen <= max_len_ratio * lf))
+            if min_abs_len:
+                qlen_r = qe - qs
+                frag = ((qlen_r >= min_abs_len) & (slen >= 0.7 * qlen_r)
+                        & (slen <= 1.5 * qlen_r))
+                keep &= full | frag
+            else:
+                keep &= full
+            for i in np.nonzero(keep)[0]:
+                s0, s1 = int(ss[i]), int(se[i])
+                if strand[i] == 1:
+                    s0, s1 = idx.seg_len - s1, idx.seg_len - s0
+                soff = int(seg[i]) * idx.seg_len
+                out[int(cand[i])].append(CopyHit(
+                    start=soff + s0, end=soff + s1,
+                    strand=int(strand[i]), nseeds=int(ns[i])))
+
+        SB = self._seg_block
+        starts = sorted({min(s, idx.n_segs - SB)
+                         for s in range(0, idx.n_segs, SB)})
+        # candidate rows a call capped by width (2^21 cells); the JAX
+        # package pads the last call to row_cap all-N rows for its static
+        # shapes, which yield no chains, so the port runs the real rows
+        W = mat.shape[1]
+        row_cap = max(8, (1 << 21) // W)
+        row_cap = 1 << (row_cap.bit_length() - 1)
+        for b0 in range(0, mat.shape[0], row_cap):
+            sub_d = torch.from_numpy(mat[b0 : b0 + row_cap]).to(
+                idx.genome.device)
+            seen: set = set()
+            for s0 in starts:
+                rows, n_hits = _map_block(cfg, sub_d, idx, s0, SB,
+                                          self._out_budget, **self._geom)
+                if n_hits > self._out_budget:
+                    logger.warning(
+                        "find_copies: %d hits exceed the %d block budget; "
+                        "truncated", n_hits, self._out_budget)
+                if len(rows):
+                    rows = rows.copy()
+                    rows[:, 0] += b0           # sub-batch -> global cand
+                    # overlapping final block: drop re-mapped segments
+                    fresh = np.array([s not in seen for s in rows[:, 1]])
+                    _collect(rows[fresh])
+                seen.update(range(s0, s0 + SB))
+        return _dedup_cap(out, max_copies)
 
     def _find_copies_join(self, cand_seqs, *, min_coverage, max_copies,
                           max_len_ratio, min_abs_len=0):
@@ -265,14 +424,24 @@ class CopyFinder:
             # chunks with a halo: any copy lies whole in at least one chunk;
             # cross-chunk duplicates collapse in the dedup tail
             C = self.max_libjoin_bp
-            halo = int(min(C // 4, max(65_536, 2 * lens.max())))
-            step = C - 2 * halo
-            for c0 in range(0, max(1, Lp - 2 * halo), step):
-                c0 = min(c0, Lp - C)
+            for c0 in join_chunk_starts(Lp, C, int(lens.max())):
+                count("copies.join.chunks")
                 _one_chunk(chunk_slice(flat_d, c0, C), c0, C)
-                if c0 == Lp - C:
-                    break
         return _dedup_cap(out, max_copies)
+
+
+def join_chunk_starts(Lp: int, C: int, max_len: int) -> List[int]:
+    """Start offsets of the chunked copy join over a padded genome of Lp
+    bp: chunks of C bp overlapping by a halo of min(C / 4, max(65,536,
+    2 * the longest candidate)), so any copy lies whole in one chunk; the
+    last chunk ends at Lp."""
+    halo = int(min(C // 4, max(65_536, 2 * max_len)))
+    out: List[int] = []
+    for c0 in range(0, max(1, Lp - 2 * halo), C - 2 * halo):
+        out.append(min(c0, Lp - C))
+        if out[-1] == Lp - C:
+            break
+    return out
 
 
 _MINHASH_SALTS = np.arange(1, 65, dtype=np.uint64) * np.uint64(

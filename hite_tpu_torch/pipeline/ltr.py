@@ -39,7 +39,11 @@ from hite_tpu_torch.ops.terminal import batched_local_align_auto
 from hite_tpu_torch.pipeline.candidates import pad_rows, pad_seqs
 from hite_tpu_torch.pipeline.coarse import _chunk_grid, chunk_slice
 from hite_tpu_torch.pipeline.copies import CopyFinder, GenomeIndex
-from hite_tpu_torch.utils.log import logger, stage_timer
+from hite_tpu_torch.utils.log import count, logger, stage_timer
+
+# Genomes whose padded length passes this run the LTR-pair self-join as
+# overlapping chunks of this size (the JAX package's literal `cap`)
+LTR_CHUNK_BP = 1 << 26
 
 
 @dataclass
@@ -93,7 +97,7 @@ def ltr_pair_candidates(
     One self-join (window 4, diagonal band 32) and its HSP scan over a
     seed-pair budget of 2^20 a slice (up to 64 slices), then forward
     HSPs whose offset lies in the element-size window chain on the host.
-    Genomes past 2^26 bp run as overlapping chunks (halo = the largest
+    Genomes past LTR_CHUNK_BP run as overlapping chunks (halo = the largest
     element span) with 10 bp-rounded dedup, like the reference's 10 Mb
     chromosome chunking (bin/FiLTR-main/main.py:135-156).  `seg_len` is
     kept for the JAX package's signature; the self-join does not read it.
@@ -149,11 +153,12 @@ def ltr_pair_candidates(
             out.append((off + int(a), off + int(b_), off + int(c),
                         off + int(d)))
 
-    cap = 1 << 26
+    cap = LTR_CHUNK_BP
     if Lp <= cap:
         one_chunk(flat_d, 0, Lp)
     else:
         for c0 in _chunk_grid(L, cap, halo):
+            count("ltr.candidates.chunks")
             one_chunk(chunk_slice(flat_d, c0, cap), c0, cap)
     return out
 

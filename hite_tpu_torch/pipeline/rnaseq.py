@@ -183,11 +183,9 @@ def map_reads(genome, reads: Sequence[np.ndarray], cfg,
 
     gindex = gindex or GenomeIndex(genome, cfg)
     # fill_w=8: reads tile features densely, so many reads share each
-    # genome k-mer (see CopyFinder fill_w note).  The JAX package also
-    # passes max_chains=16, which only its legacy segments mapper reads;
-    # the join (the only strategy ported) ignores it, so the port's
-    # CopyFinder does not take it
-    finder = CopyFinder(gindex, min_seeds=3, fill_w=8)
+    # genome k-mer (see CopyFinder fill_w note); max_chains is read only
+    # by the segments mapper, as in the JAX package
+    finder = CopyFinder(gindex, min_seeds=3, max_chains=16, fill_w=8)
     out: List[Optional[ReadMapping]] = []
     for b0 in range(0, len(reads), batch):
         chunk = list(reads[b0:b0 + batch])

@@ -23,8 +23,9 @@ under a `Checkpointer` snapshot:
 `main(argv, device=None)` is the CLI with the JAX package's flags
 (`python -m hite_tpu_torch --genome g.fa --out_dir o ...`): it runs on the
 card, and raises without one unless the caller passes `device="cpu"`.
-Genomes over 512 Mbp (the JAX package's packed host tier) are ROADMAP item
-16.7; the JAX `mesh` argument is item 16.5.
+A genome whose host arrays are packed (`Genome.pack_host`, automatic past
+512 Mbp) stays packed through the run.  The JAX `mesh` argument is ROADMAP
+item 16.5.
 """
 
 from __future__ import annotations
@@ -65,8 +66,9 @@ DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data")
 
 def _mask_tandem_regions(genome: Genome, seg_len: int = 131_072,
                          batch: int = 16) -> int:
-    """N-out tandem arrays in the masked genome copy (TRF -m equivalent);
-    returns bp masked."""
+    """N-out tandem arrays in the masked genome copy (TRF -m equivalent),
+    a packed genome unpacked one batch of segments at a time; returns bp
+    masked."""
     n_segs = genome.n_segments(seg_len)
     total = 0
     for b0, chunk in genome.segment_batches(seg_len, batch):
@@ -351,11 +353,11 @@ def run_pipeline(
     # stage 0a: redundant-contig removal (reference genome_clean.py before
     # everything, main.py:435-441); surviving contigs are RENAMED Chr1..N
     # (genome_clean.py:87-93) and the original names kept in
-    # contig_name.map.  The JAX package re-packs a >512 Mbp genome here
-    # (`pack_host`); the packed tier is ROADMAP item 16.7.
+    # contig_name.map.
     if cfg.clean_genome and len(genome.names) > 1:
         from hite_tpu_torch.pipeline.clean import clean_genome
 
+        was_packed = not isinstance(genome.flat, np.ndarray)
         with stage_timer("pipeline.clean"):
             cleaned, name_map = clean_genome(genome.to_dict(), cfg,
                                              rename=True,
@@ -365,6 +367,10 @@ def run_pipeline(
                         len(genome.names) - len(cleaned.names),
                         len(genome.names))
         genome = cleaned
+        if was_packed:
+            # a packed input stays packed: clean_genome rebuilds uint8
+            # arrays (a 1 byte/bp transient), re-packed here
+            genome.pack_host()
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, "contig_name.map"), "w") as fh:

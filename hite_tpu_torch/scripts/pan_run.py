@@ -12,7 +12,9 @@ and power limit added).  Reference analog: `panHiTE.nf:94-216`.
         [--device cpu]
 
 Also the source of the small pan genomes the tests and `chip_smoke.py`
-hold the port against the JAX package and the CPU with.
+hold the port against the JAX package and the CPU with, and of the bench
+substrate (`build_bench_genome`) that `scale_run` and `chip_smoke.py`
+run.
 """
 
 from __future__ import annotations
@@ -265,6 +267,124 @@ def pan_config():
     params = CoarseParams(seg_len=262_144, pair_batch=64, stride=4,
                           max_hits=4)
     return cfg, params
+
+
+def build_bench_genome(length: int = 8_000_000, scale: int = 1,
+                       hard: bool = False, device=None):
+    """The bench substrate: planted TIR (TSD + ITR), Helitron (LCV head +
+    CTAGT tail, A|T host site), SINE (polyA tail + TSD) and intact LTR
+    families on a seed-7 random background (the port's copy of
+    `bench.py:build_bench_genome`, the same numpy draws).  `scale`
+    multiplies the family counts (the scale run keeps the TE density of
+    8 Mbp at 100 Mbp); `hard=True` adds the reference's hard cases:
+    5'/3'-truncated TIR copies, solo LTRs, a TIR nested in an LTR
+    interior, and head-to-tail tandem TIR arrays.
+
+    Returns (Genome on `device`, truth): truth holds the planted
+    "intervals" int64 [N, 2], their "classes" and family "names", and the
+    "families" {name: unmutated codes}."""
+    from hite_tpu_torch.genome import Genome
+
+    rng = np.random.default_rng(7)
+    bg = rng.integers(0, 4, length).astype(np.uint8)
+    bins: dict = {}           # 64 kbp placement bins: O(n) overlap checks
+    placed = []               # (start, end, class, family)
+    families = {}
+
+    def overlaps(pos, end):
+        for b in range(pos // 65536 - 1, end // 65536 + 2):
+            for s, e in bins.get(b, ()):
+                if pos < e + 200 and end + 200 > s:
+                    return True
+        return False
+
+    def plant(te, n, klass, name, tsd=0, host_at=False, mut=0.02,
+              spans=None):
+        """n mutated copies of `te`; `spans` lists (offset, length,
+        class, family) sub-spans of a composite (nested) element."""
+        while n:
+            pos = int(rng.integers(1000, length - len(te) - 1000))
+            if overlaps(pos, pos + len(te)):
+                continue
+            copy = te.copy()
+            muts = rng.random(len(copy)) < mut
+            copy[muts] = (copy[muts] + rng.integers(1, 4, muts.sum())) % 4
+            if tsd:
+                t = rng.integers(0, 4, tsd).astype(np.uint8)
+                bg[pos - tsd: pos] = t
+                bg[pos + len(copy): pos + len(copy) + tsd] = t
+            if host_at:
+                bg[pos - 1] = 0
+                bg[pos + len(copy)] = 3
+            bg[pos: pos + len(copy)] = copy
+            for off, ln, kl, nm in (spans or ((0, len(te), klass, name),)):
+                placed.append((pos + off, pos + off + ln, kl, nm))
+            for b in range(pos // 65536, (pos + len(copy)) // 65536 + 1):
+                bins.setdefault(b, []).append((pos, pos + len(copy)))
+            n -= 1
+
+    tir_tes = []
+    for f in range(3 * scale):
+        n, interior = ((20, 460), (15, 900), (10, 1400))[f % 3]
+        t = rng.integers(0, 4, 20).astype(np.uint8)
+        while t[0] == 3 and t[1] == 2:
+            t = rng.integers(0, 4, 20).astype(np.uint8)
+        te = np.concatenate([t, rng.integers(0, 4, interior).astype(np.uint8),
+                             (3 - t)[::-1]])
+        tir_tes.append(te)
+        families[f"TIR_{f}"] = te
+        plant(te, n, "TIR", f"TIR_{f}", tsd=5)
+    for f in range(2 * scale):
+        n, interior = ((8, 700), (8, 1200))[f % 2]
+        te = np.concatenate([
+            encode_seq("TCTCTACTA"),
+            rng.integers(0, 4, interior).astype(np.uint8),
+            encode_seq("CAATGAACG" + "ACGTACGTA" + "CTAGT")])
+        families[f"HEL_{f}"] = te
+        plant(te, n, "Helitron", f"HEL_{f}", host_at=True)
+    for f in range(2 * scale):
+        n, interior = ((20, 280), (20, 420))[f % 2]
+        te = np.concatenate([rng.integers(0, 4, interior).astype(np.uint8),
+                             np.zeros(14, np.uint8)])
+        families[f"SINE_{f}"] = te
+        plant(te, n, "SINE", f"SINE_{f}", tsd=12)
+    ltr_tes = []
+    for f in range(4 * scale):
+        n, ltr_len = ((4, 250), (4, 350), (4, 450), (4, 600))[f % 4]
+        t = rng.integers(0, 4, ltr_len).astype(np.uint8)
+        t[0], t[1], t[-2], t[-1] = 3, 2, 1, 0
+        te = np.concatenate([t, rng.integers(0, 4, 2200).astype(np.uint8), t])
+        ltr_tes.append((te, t))
+        families[f"LTR_{f}"] = te
+        plant(te, n, "LTR", f"LTR_{f}", tsd=5, mut=0.01)
+
+    if hard:
+        for f, te in enumerate(tir_tes):       # 5' and 3' truncated copies
+            cut = int(len(te) * (0.4 + 0.1 * (f % 4)))
+            plant(te[cut:], 3, "TIR", f"TIR_{f}")
+            plant(te[:-cut], 3, "TIR", f"TIR_{f}")
+        for f, (_te, t) in enumerate(ltr_tes):  # solo LTRs with their TSD
+            plant(t, 3, "LTR", f"LTR_{f}", tsd=5, mut=0.01)
+        for f, (te, t) in enumerate(ltr_tes):   # a TIR in an LTR interior
+            fi = f % len(tir_tes)
+            inner = tir_tes[fi]
+            mid = len(t) + 1100
+            composite = np.concatenate([te[:mid], inner, te[mid:]])
+            spans = ((0, mid, "LTR", f"LTR_{f}"),
+                     (mid, len(inner), "TIR", f"TIR_{fi}"),
+                     (mid + len(inner), len(te) - mid, "LTR", f"LTR_{f}"))
+            plant(composite, 2, "LTR", f"LTR_{f}", tsd=5, mut=0.01,
+                  spans=spans)
+        for f, te in enumerate(tir_tes):       # head-to-tail tandem arrays
+            plant(np.concatenate([te] * (2 + f % 2)), 2, "TIR", f"TIR_{f}",
+                  tsd=5)
+
+    truth = {"intervals": np.array([(s, e) for s, e, _k, _n in placed],
+                                   np.int64).reshape(-1, 2),
+             "classes": [k for _s, _e, k, _n in placed],
+             "names": [n for _s, _e, _k, n in placed],
+             "families": families}
+    return Genome.from_dict({"chr1": bg}, device=device), truth
 
 
 def accuracy_metrics(genome, result, truth, cfg) -> dict:

@@ -178,12 +178,14 @@ def test_checkpointer_roundtrip(tmp_path):
     ck2 = Checkpointer(str(tmp_path), cfg)
     assert (ck2.run("stage1", compute)["x"] == r1["x"]).all()
     assert len(calls) == 1
-    Checkpointer(str(tmp_path), cfg.replace(plant=False)).run("stage1",
-                                                              compute)
+    other = Checkpointer(str(tmp_path), cfg.replace(plant=False))
+    other.run("stage1", compute)
     assert len(calls) == 2
+    other.wait()     # its snapshot is written on a thread: land it first
     ck.clean()
     ck.run("stage1", compute)
     assert len(calls) == 3
+    ck.wait()
     assert os.listdir(tmp_path / ".checkpoints")
 
 

@@ -43,6 +43,7 @@ MODULES = [
     "hite_tpu_torch.pipeline.ltr_legacy", "hite_tpu_torch.ops.eahelitron",
     "hite_tpu_torch.parallel.multihost", "hite_tpu_torch.pipeline.rnaseq",
     "hite_tpu_torch.pipeline.pan", "hite_tpu_torch.scripts.pan_run",
+    "hite_tpu_torch.ops.pack2", "hite_tpu_torch.scripts.scale_run",
 ]
 
 
@@ -163,6 +164,28 @@ def test_pan_main_raises_without_gpu(monkeypatch, tmp_path):
         main(["--pan_genomes_dir", str(tmp_path / "g"), "--out_dir",
               str(tmp_path / "o"), "--skip_analyze", "1"])
     assert not (tmp_path / "o").exists()
+
+
+def test_scale_run_raises_without_gpu(monkeypatch, tmp_path):
+    """scale_run builds its genome on the card unless told "cpu"."""
+    from hite_tpu_torch.scripts.scale_run import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        main(["--mbp", "1", "--build-only", "--out", str(tmp_path / "o")])
+
+
+def test_native_sources_build_with_the_kernels():
+    """The host libraries (chaining, the FASTA reader) are built by
+    kernels.build beside the CUDA sources, into the package's _build/."""
+    from hite_tpu_torch import kernels
+
+    assert set(kernels.HOST_SOURCES) == {"chain", "fasta"}
+    assert all(os.path.exists(p) for p in kernels.HOST_SOURCES.values())
+    kernels.build(list(kernels.HOST_SOURCES))
+    assert all(os.path.exists(kernels._lib_path(n))
+               for n in kernels.HOST_SOURCES)
+    assert os.path.dirname(kernels._lib_path("fasta")) == kernels.BUILD_DIR
 
 
 def test_kernel_wrapper_needs_cuda_tensors_off_cpu():
