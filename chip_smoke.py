@@ -38,7 +38,20 @@ Phases, each printing its own lines:
      substrate's FASTA loaded packed (Genome.from_fasta(packed=True)),
      every file byte-equal to the unpacked run's;
   6. both CNNs with the bundled parameters, cuda against the CPU: logits
-     within the tests' tolerances, decisions equal;
+     within the tests' tolerances, decisions equal; then the training
+     path: make_dataset (TSD and domain blocks) on 4 synthetic TEs a class
+     and the curated eval fold cuda == CPU exactly, the full default set
+     on cuda; 3 AdamW steps of both CNNs from the bundled parameters, cuda
+     against the CPU (losses and held logits); with the counts zeroed just
+     before and read just after, pretrain_superfamily() and
+     pretrain_ltr_filter() at their defaults (smoke_out/models/; the LTR
+     filter from the JAX package's seed-0 init) and mine_weak_labels on
+     the main path's out_dir, every SW launch held against the plain
+     version on its own inputs; the new checkpoints reloaded on cuda and
+     the CPU, their curated / synthetic eval numbers beside the bundled
+     checkpoints' (the superfamily CNN at most 0.1 below, the LTR filter
+     at most the JAX package's seed spread, 0.2), the weak labels cuda ==
+     CPU, and the wall, steps/s and feature-build s;
   7. cuda against the CPU, which must agree exactly: the TIR path on a
      160 kbp genome, the modules path with the rescue on a 240 kbp genome
      with planted TIR, Helitron and SINE copies, the rescue of a planted
@@ -85,8 +98,8 @@ Phases, each printing its own lines:
      11/11; TP/FP/FN beside the JAX package's record), and the coarse
      "pairs" and the segments copy mapper, cuda against the CPU, on the
      240 kbp modules genome;
- 15. the kernel line (launches of the main, pan and scale paths), the
-     card line, and the result line (last).
+ 15. the kernel line (launches of the main, pan, scale and training
+     paths), the card line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
 Detailed numbers go to smoke_out/chip_smoke.json, the runs' output files
@@ -95,6 +108,7 @@ to smoke_out/.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -1796,6 +1810,256 @@ def check_strategies() -> dict:
                 cpu_s=t_cpu)
 
 
+# ---------------------------------------------------------------- training
+
+# each training step's loss, cuda against the CPU (the CPU tests' tolerance
+# against the JAX package, tests/test_torch_train.py); logits use the
+# CNN tolerances
+TRAIN_LOSS_TOL = 0.01
+# the retrained checkpoints may fall this far below the bundled ones on the
+# same folds: curated accuracy and macro-F1 (27 entries, 0.1 = 3 of them);
+# the LTR filter's synthetic-eval accuracy by the JAX package's own spread
+# across seeds, its `pretrain_ltr_filter(seed=s)` for seeds 0-7 on the CPU
+# (`python tests/test_torch_train.py ltr-seeds 0 7`: worst seed 5, 0.8
+# against the bundled 1.0; PERF.md, Findings)
+SF_MARGIN = 0.1
+LTR_MARGIN = 0.2
+# the LTR filter's retrain starts from the JAX package's own init for seed
+# 0 (the start of its default `pretrain_ltr_filter()`), bundled with the
+# port: the port's draw of the same distribution differs, and the recipe
+# leaves the chance plateau in some draws only (ROADMAP queue 3, quirk 10)
+LTR_INIT = "ltr_filter_init_seed0.pkl"
+
+
+def _same_dataset(a, b, label):
+    assert np.array_equal(a[0], b[0]), f"{label}: X differs"
+    assert np.array_equal(a[1], b[1]) and a[2] == b[2], f"{label}: y/names"
+
+
+def train_datasets() -> dict:
+    """make_dataset with the TSD and domain blocks on the default synthetic
+    training set (60 a class, seed 0): its first 4 TEs a class and the
+    curated eval fold on cuda and on the CPU, X exactly equal; the whole
+    set and the curated train fold on cuda alone, timed."""
+    from hite_tpu_torch.models import trainer
+    from hite_tpu_torch.models.synthetic import synthetic_training_set
+
+    lib, tsds, doms = synthetic_training_set(n_per_class=60, seed=0)
+    cut = {n: s for n, s in lib.items()
+           if int(n.partition("#")[0].rsplit("_", 1)[1]) < 4}
+    sets = {}
+    for dev in ("cuda", "cpu"):
+        sets[dev] = (trainer.make_dataset(cut, tsds=tsds, domains=doms,
+                                          device=dev),
+                     trainer.curated_dataset("eval", device=dev))
+    _same_dataset(sets["cuda"][0], sets["cpu"][0], "synthetic cut")
+    _same_dataset(sets["cuda"][1], sets["cpu"][1], "curated eval")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = trainer.make_dataset(lib, tsds=tsds, domains=doms, device="cuda")
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cur_train = trainer.curated_dataset("train", device="cuda")
+    cur_s = time.perf_counter() - t0
+    print(f"train datasets: synthetic cut ({len(cut)} TEs, 4 a class) and "
+          f"curated eval fold ({len(sets['cuda'][1][2])} entries): cuda == "
+          f"cpu exactly; full synthetic set {full[0].shape} on cuda in "
+          f"{full_s:.2f} s, curated train fold {cur_train[0].shape} in "
+          f"{cur_s:.2f} s")
+    return dict(cut=sets["cpu"][0], curated_eval=sets["cuda"][1],
+                report=dict(cut_rows=len(cut), full_shape=full[0].shape,
+                            full_s=full_s, curated_train_s=cur_s))
+
+
+def train_steps_cuda_vs_cpu(cut) -> dict:
+    """SuperfamilyCNN(dropout=0.0) and LTRFilterCNN from the bundled
+    parameters (`load_flax_params`), 3 AdamW steps on the same batches on
+    cuda and on the CPU: each step's loss and the logits on a held batch
+    after training."""
+    from hite_tpu_torch.models import bundled_model_path
+    from hite_tpu_torch.models.classifier import SuperfamilyCNN
+    from hite_tpu_torch.models.convert import load_flax_params, load_params
+    from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
+    from hite_tpu_torch.models.pretrain import _frame_inputs
+    from hite_tpu_torch.models.synthetic import synthetic_frames
+    from hite_tpu_torch.models.train import adamw, make_train_step
+
+    X, y, _ = cut
+    order = np.random.default_rng(5).permutation(len(X))[:112]
+    sf = [((X[order[i:i + 32]],), y[order[i:i + 32]])
+          for i in range(0, 96, 32)] + [((X[order[96:]],), None)]
+    frames, labels = synthetic_frames(n=40, seed=3)
+    imgs, kms = _frame_inputs(frames, "cpu")
+    ltr = [((imgs[i:i + 8], kms[i:i + 8]), labels[i:i + 8])
+           for i in range(0, 24, 8)] + [((imgs[24:], kms[24:]), None)]
+    out = {}
+    for name, make, batches, tol in (
+            ("SuperfamilyCNN", lambda: SuperfamilyCNN(dropout=0.0), sf,
+             SF_CNN_TOL),
+            ("LTRFilterCNN", LTRFilterCNN, ltr, LTR_CNN_TOL)):
+        path = bundled_model_path("superfamily_cnn.pkl"
+                                  if name == "SuperfamilyCNN"
+                                  else "ltr_filter_cnn.pkl")
+        losses, logits = {}, {}
+        for dev in ("cuda", "cpu"):
+            model = load_flax_params(make(), load_params(path)).to(dev)
+            step = make_train_step(model, adamw(model))
+            t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+            losses[dev] = [float(step({"inputs": tuple(map(t, inp)),
+                                       "labels": t(lab).long()}))
+                           for inp, lab in batches[:-1]]
+            with torch.no_grad():
+                logits[dev] = model.eval()(*map(t, batches[-1][0])
+                                           ).cpu().numpy()
+        loss_err = max(abs(a - b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+        err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+        same = np.array_equal(logits["cuda"].argmax(1),
+                              logits["cpu"].argmax(1))
+        print(f"train steps {name} (bundled init, 3 AdamW steps): cuda vs "
+              f"cpu max |loss diff| {loss_err:.6f} (tolerance "
+              f"{TRAIN_LOSS_TOL}; losses {losses['cuda']}), held logits max "
+              f"|diff| {err:.5f} (tolerance {tol}); decisions "
+              f"{'equal' if same else 'DIFFER'}")
+        assert loss_err <= TRAIN_LOSS_TOL and err <= tol and same, name
+        out[name] = dict(loss_err=loss_err, logit_err=err,
+                         losses=losses["cuda"])
+    return out
+
+
+def check_train(sass, main_dir) -> dict:
+    """The training path on cuda: the datasets and training steps against
+    the CPU; then, with the launch counts zeroed just before and read just
+    after, `pretrain_superfamily()` and `pretrain_ltr_filter()` at their
+    defaults (written to smoke_out/models/) and `mine_weak_labels` on the
+    main path's out_dir; every SW launch of that run held against the
+    plain version on its own inputs; the new checkpoints reloaded on cuda
+    (`load_model`) and on the CPU (`load_params` + the port's model),
+    within the CNN tolerances; their curated-eval accuracy / macro-F1 and
+    synthetic-eval accuracy beside the bundled checkpoints' on the same
+    folds (the new superfamily CNN may fall at most SF_MARGIN below, the
+    LTR filter, retrained from the JAX package's seed-0 init, LTR_MARGIN);
+    the weak labels cuda == CPU; the wall, steps/s and feature-build s."""
+    from hite_tpu_torch.models import bundled_model_path, pretrain, trainer
+    from hite_tpu_torch.models.classifier import SuperfamilyCNN
+    from hite_tpu_torch.models.convert import (
+        load_flax_params, load_model, load_params,
+    )
+    from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
+    from hite_tpu_torch.models.synthetic import (
+        synthetic_frames, synthetic_training_set,
+    )
+    from hite_tpu_torch.models.weak_labels import mine_weak_labels
+
+    data = train_datasets()
+    report = dict(datasets=data["report"],
+                  steps=train_steps_cuda_vs_cpu(data["cut"]))
+    mdir = os.path.join("smoke_out", "models")
+    shutil.rmtree(mdir, ignore_errors=True)
+    paths = {c: os.path.join(mdir, f"{c}.pkl")
+             for c in ("superfamily_cnn", "ltr_filter_cnn")}
+
+    # ---- the training path, counted
+    hlog.STAGE_TIMES.clear()
+    walls, steps = {}, {}
+    kernels.reset_launches()
+    ltr_init = load_params(bundled_model_path(LTR_INIT))
+    with RecordSW() as rec:
+        for name, fn in (("superfamily", pretrain.pretrain_superfamily),
+                         ("ltr_filter", functools.partial(
+                             pretrain.pretrain_ltr_filter, init=ltr_init))):
+            hlog.COUNTERS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, hist = fn(out=paths[f"{name}_cnn"], device="cuda")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            steps[name] = hlog.COUNTERS["train.steps"]
+            report[name] = dict(metrics=metrics, history=hist)
+        mined = mine_weak_labels([main_dir], device="cuda")
+    launches = dict(kernels.LAUNCHES)
+    stages = dict(hlog.STAGE_TIMES)
+    assert launches["sw"] > 0, "the training path never launched sw"
+    assert launches["sw_protein"] > 0, \
+        "the training path never launched sw_protein"
+    assert len(rec.calls) == launches["sw"] + launches["sw_protein"]
+    rows = check_recorded(rec.calls, sass, "train")
+    del rec
+    hist = report["superfamily"]["history"]
+    assert hist[-1] < hist[0], f"superfamily loss did not fall: {hist}"
+
+    # ---- the new checkpoints: cuda and the CPU, and against the bundled
+    Xr, yr, _ = data["curated_eval"]
+    ev = synthetic_training_set(n_per_class=12, seed=1)
+    Xe, ye, _ = trainer.make_dataset(ev[0], tsds=ev[1], domains=ev[2],
+                                     device="cuda")
+    ef, el = synthetic_frames(n=80, seed=1)
+    ei, ek = pretrain._frame_inputs(ef, "cuda")
+    quality = {}
+    for cls, key, inputs, tol in (
+            (SuperfamilyCNN, "superfamily_cnn", (Xr,), SF_CNN_TOL),
+            (LTRFilterCNN, "ltr_filter_cnn", (ei[:32], ek[:32]),
+             LTR_CNN_TOL)):
+        new = load_model(cls, paths[key], "cuda")
+        cpu = load_flax_params(cls(), load_params(paths[key])).eval()
+        with torch.no_grad():
+            g = new(*[torch.from_numpy(x).cuda() for x in inputs]).cpu()
+            c = cpu(*map(torch.from_numpy, inputs))
+        err = float((g - c).abs().max())
+        same = torch.equal(g.argmax(1), c.argmax(1))
+        print(f"train checkpoint {key}: reloaded on cuda and the CPU, max "
+              f"|logit diff| {err:.5f} (tolerance {tol}); decisions "
+              f"{'equal' if same else 'DIFFER'}")
+        assert err <= tol and same, key
+        old = load_model(cls, bundled_model_path(f"{key}.pkl"), "cuda")
+        if cls is SuperfamilyCNN:
+            q = {tag: dict(curated=trainer.evaluate(m, Xr, yr),
+                           synthetic=trainer.evaluate(m, Xe, ye))
+                 for tag, m in (("new", new), ("bundled", old))}
+            for tag in q:
+                print(f"train superfamily {tag} checkpoint: curated eval "
+                      f"accuracy {q[tag]['curated']['accuracy']:.4f} "
+                      f"macro-F1 {q[tag]['curated']['f1']:.4f}; synthetic "
+                      f"eval accuracy {q[tag]['synthetic']['accuracy']:.4f}")
+            for k in ("accuracy", "f1"):
+                assert q["new"]["curated"][k] >= \
+                    q["bundled"]["curated"][k] - SF_MARGIN, (k, q)
+        else:
+            q = {tag: pretrain.ltr_filter_accuracy(m, ei, ek, el)
+                 for tag, m in (("new", new), ("bundled", old))}
+            print(f"train ltr filter (from the JAX package's seed-0 init): "
+                  f"synthetic eval accuracy (80 frames, seed 1) new "
+                  f"{q['new']:.4f}, bundled {q['bundled']:.4f} (margin "
+                  f"{LTR_MARGIN})")
+            assert q["new"] >= q["bundled"] - LTR_MARGIN, q
+        quality[key] = dict(q, reload_err=err)
+
+    # ---- weak labels, cuda against the CPU
+    mined_cpu = mine_weak_labels([main_dir], device="cpu")
+    assert list(mined[0]) == list(mined_cpu[0])
+    assert all(np.array_equal(mined[0][n], mined_cpu[0][n])
+               for n in mined[0])
+    assert mined[1] == mined_cpu[1]
+    print(f"train weak labels on {main_dir}: cuda == cpu; {len(mined[0])} "
+          f"labeled families {sorted(set(mined[1].values()))}")
+
+    card = card_line()
+    feat = {n: stages.get(f"pretrain.{n}.features", 0.0) for n in walls}
+    train_s = {n: stages[f"pretrain.{n}.train"] for n in walls}
+    for n in walls:
+        print(f"train {n}: loss by epoch "
+              f"{[round(x, 4) for x in report[n]['history']]}")
+        print(f"train timing ({card}): pretrain_{n} wall {walls[n]:.2f} s; "
+              f"feature build {feat[n]:.2f} s; {steps[n]} steps in "
+              f"{train_s[n]:.2f} s = {steps[n] / train_s[n]:.1f} steps/s")
+    print(f"train timing ({card}): sw launches {launches['sw']}, "
+          f"sw_protein {launches['sw_protein']} on the training path")
+    report.update(walls=walls, steps=steps, feature_s=feat, train_s=train_s,
+                  stages=stages, launches=launches, quality=quality,
+                  weak_labels=len(mined[0]), sw_rows=rows)
+    return report
+
+
 class Laps:
     """Prints, and keeps in the report, each phase's seconds since the
     previous mark (the script's time budget by phase)."""
@@ -2152,6 +2416,10 @@ def main() -> int:
     # ---- both CNNs with the bundled parameters, cuda against the CPU
     report["cnn"] = check_cnns()
     lap("cnns")
+    # ---- the training path: both pretrainings at their defaults
+    train = check_train(sass, main_dir)
+    report["train"] = train
+    lap("training")
 
     # ---- device vs CPU on small genomes (the CPU path is held against the
     # JAX package by the tests): the TIR path, the modules path with the
@@ -2214,7 +2482,7 @@ def main() -> int:
     lap("hard substrate and strategies")
 
     # ---- kernel line: time of each kernel weighted over the launches of
-    # the main, pan and scale paths (device time from the profiler where
+    # the main, pan, scale and training paths (device time from the profiler where
     # it saw the kernel, else the event time) and of the bound (the
     # recurrence's int32 operations at the int32 rate); `launches` is the
     # paths' counts together, each also listed by path
@@ -2225,12 +2493,13 @@ def main() -> int:
             ("sw_protein", "hite_tpu/ops/terminal.py:157",
              prot_rows + prot_borders)):
         mr = (main_rows[kname] + pan["sw_rows"][kname]
-              + scale["sw_rows"][kname])
+              + scale["sw_rows"][kname] + train["sw_rows"][kname])
         tot = sum(r["launches"] for r in mr)
         wavg = lambda key: sum(r[key] * r["launches"] for r in mr) / tot
         by_path = {"main": launches[kname],
                    "pan": pan["launches"][kname],
-                   "scale": scale["launches"][kname]}
+                   "scale": scale["launches"][kname],
+                   "train": train["launches"][kname]}
         entries.append({
             "name": kname, "route": "cuda",
             "source": "hite_tpu_torch/csrc/sw.cu", "replaces": replaces,

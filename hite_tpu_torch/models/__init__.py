@@ -1,9 +1,12 @@
-"""Neural models (NeuralTE / HybridLTR equivalents): inference only.
+"""Neural models (NeuralTE / HybridLTR equivalents) and their training.
 
 Counterpart of the JAX package's `models/`: the superfamily classifier and
-the LTR deep filter as `nn.Module`s, their feature extraction, and the
-converter that fills them from the flax parameter trees the JAX package
-trains and bundles.  Training stays in the JAX package for now.
+the LTR deep filter as `nn.Module`s, their feature extraction, the
+converter between them and the flax parameter trees both packages bundle
+(`convert`), the training step (`train`), the classifier's training and
+evaluation (`trainer`), the synthetic and weak-label corpora (`synthetic`,
+`weak_labels`) and the pretraining of the default checkpoints
+(`pretrain`, `python -m hite_tpu_torch.models.pretrain`).
 """
 
 from __future__ import annotations

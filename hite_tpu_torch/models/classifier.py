@@ -1,15 +1,16 @@
-"""TE superfamily classifier (NeuralTE-equivalent), inference in PyTorch.
+"""TE superfamily classifier (NeuralTE-equivalent) in PyTorch.
 
 Counterpart of the JAX package's `models/classifier.py`: the same 1-D CNN
 over the NeuralTE feature vector (3 x Conv(32, k=7) + ReLU + max-pool 2,
-Dense 256, Dense 28), with flax's bf16 arithmetic (`models.convert`),
-filled from the JAX package's parameter tree; the 28 Wicker superfamilies
-and their RepeatMasker names; `predict_labels`.
+dropout in training, Dense 256, Dense 28), with flax's bf16 arithmetic
+(`models.convert`), filled from the JAX package's parameter tree or
+trained (`models.trainer`); the 28 Wicker superfamilies and their
+RepeatMasker names; `predict_labels`.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,12 +45,18 @@ WICKER_TO_RM = {
 
 class SuperfamilyCNN(nn.Module):
     """1-D CNN over the feature vector [B, F] (treated as a length axis)
-    -> float32 logits [B, num_classes].  Dropout is off at inference."""
+    -> float32 logits [B, num_classes].
+
+    `dropout` (flax's default 0.5) applies to the flattened features in
+    training mode only, as flax's `nn.Dropout`: keep with probability
+    1 - rate, scaled by 1 / (1 - rate), in bf16; the mask draws from the
+    `generator` handed to `forward` (on the input's device)."""
 
     def __init__(self, n_features: int = FEATURE_DIM, num_classes: int = 28,
                  channels: Sequence[int] = (32, 32, 32), kernel: int = 7,
-                 hidden: int = 256):
+                 hidden: int = 256, dropout: float = 0.5):
         super().__init__()
+        self.dropout = dropout
         cin, width = 1, n_features
         for i, ch in enumerate(channels):
             self.add_module(f"Conv_{i}", Conv(cin, ch, (kernel,)))
@@ -58,14 +65,21 @@ class SuperfamilyCNN(nn.Module):
         self.Dense_0 = Dense(width * cin, hidden)
         self.Dense_1 = Dense(hidden, num_classes, torch.float32)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x.to(BF16)[:, None, :]                       # [B, 1, F]
         for i in range(self.n_convs):
             h = F.relu(getattr(self, f"Conv_{i}")(h))
-            W = h.shape[-1] // 2                          # VALID max-pool 2
-            h = h[..., : 2 * W].reshape(h.shape[0], h.shape[1], W, 2).amax(-1)
+            # VALID max-pool 2; a tie sends the gradient to the first, as
+            # XLA's select-and-scatter does
+            h = F.max_pool1d(h, 2)
         # flax flattens [B, W, C]: channels fastest
         h = h.permute(0, 2, 1).reshape(h.shape[0], -1)
+        if self.training and self.dropout > 0:
+            keep = 1.0 - self.dropout
+            mask = torch.rand(h.shape, generator=generator,
+                              device=h.device) < keep
+            h = torch.where(mask, h / keep, torch.zeros_like(h))
         h = F.relu(self.Dense_0(h))
         return self.Dense_1(h)
 

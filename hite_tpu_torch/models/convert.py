@@ -18,18 +18,25 @@ layers here reproduce flax's arithmetic cast for cast:
   pad is max((ceil(n / s) - 1) s + k - n, 0), low half rounded down, so a
   stride-2 3x3 convolution of an even width pads 0 low and 1 high.
 
+Parameters are float32 and trainable; every cast above is differentiable,
+so a parameter's gradient arrives rounded to bf16 as in flax.  A layer
+is built with zeros; `reset_parameters` (which `models.train.create_state`
+calls) gives it flax's default init: `lecun_normal` kernels, zero biases,
+GroupNorm scale 1.
+
 Tensors are NC(H)W inside the modules; each layer's `load_flax` maps its
 flax leaves: conv kernels HWIO -> OIHW (WIO -> OIW), `Dense.kernel`
-(in, out) -> `weight` (out, in), `GroupNorm.scale` -> `weight`.
-`load_flax_params` walks a module and a flax tree together by name (the
-modules carry flax's submodule names: `Conv_0`, `ResBlock_1`, ...).
+(in, out) -> `weight` (out, in), `GroupNorm.scale` -> `weight`, and its
+`to_flax` maps them back.  `load_flax_params` walks a module and a flax
+tree together by name (the modules carry flax's submodule names:
+`Conv_0`, `ResBlock_1`, ...); `to_flax_params` builds the tree.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,12 +54,28 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _frozen(*shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+# flax's lecun_normal: a normal truncated at +-2 sigma, sigma
+# sqrt(1 / fan_in) over the truncated normal's own standard deviation
+TRUNC_STD = 0.87962566103423978
+
+
+def _param(*shape: int) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape))
 
 
 def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+@torch.no_grad()
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: Optional[torch.Generator]) -> None:
+    std = (1.0 / fan_in) ** 0.5 / TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 class Conv(nn.Module):
@@ -64,8 +87,13 @@ class Conv(nn.Module):
         super().__init__()
         self.kernel = tuple(kernel)
         self.stride = stride
-        self.weight = _frozen(cout, cin, *self.kernel)
-        self.bias = _frozen(cout)
+        self.weight = _param(cout, cin, *self.kernel)
+        self.bias = _param(cout)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        _lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pads: list = []
@@ -83,6 +111,11 @@ class Conv(nn.Module):
         self.weight.copy_(k.permute(nd - 1, nd - 2, *range(nd - 2)))
         self.bias.copy_(_f32(leaves["bias"]))
 
+    def to_flax(self) -> Dict[str, np.ndarray]:
+        w = self.weight
+        return {"kernel": _np(w.permute(*range(2, w.dim()), 1, 0)),
+                "bias": _np(self.bias)}
+
 
 class Dense(nn.Module):
     """flax `nn.Dense(dout, dtype=dtype)` on [B, din] tensors."""
@@ -90,8 +123,13 @@ class Dense(nn.Module):
     def __init__(self, din: int, dout: int, dtype: torch.dtype = BF16):
         super().__init__()
         self.dtype = dtype
-        self.weight = _frozen(dout, din)
-        self.bias = _frozen(dout)
+        self.weight = _param(dout, din)
+        self.bias = _param(dout)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        _lecun_normal_(self.weight, self.weight.shape[1], generator)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.float32:
@@ -105,6 +143,9 @@ class Dense(nn.Module):
         self.weight.copy_(_f32(leaves["kernel"]).t())
         self.bias.copy_(_f32(leaves["bias"]))
 
+    def to_flax(self) -> Dict[str, np.ndarray]:
+        return {"kernel": _np(self.weight.t()), "bias": _np(self.bias)}
+
 
 class GroupNorm(nn.Module):
     """flax `nn.GroupNorm(num_groups, dtype=bfloat16)` (epsilon 1e-6) on
@@ -114,8 +155,13 @@ class GroupNorm(nn.Module):
         super().__init__()
         self.groups = groups
         self.eps = eps
-        self.weight = _frozen(channels)
-        self.bias = _frozen(channels)
+        self.weight = _param(channels)
+        self.bias = _param(channels)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C = x.shape[:2]
@@ -134,6 +180,9 @@ class GroupNorm(nn.Module):
     def load_flax(self, leaves: Dict[str, np.ndarray]) -> None:
         self.weight.copy_(_f32(leaves["scale"]))
         self.bias.copy_(_f32(leaves["bias"]))
+
+    def to_flax(self) -> Dict[str, np.ndarray]:
+        return {"scale": _np(self.weight), "bias": _np(self.bias)}
 
 
 Tree = Dict[str, Union["Tree", np.ndarray]]
@@ -162,6 +211,31 @@ def load_flax_params(module: nn.Module, tree: Tree) -> nn.Module:
     return module
 
 
+def to_flax_params(module: nn.Module) -> Tree:
+    """The flax parameter tree of `module`, the inverse of
+    `load_flax_params`: {"params": nested dicts of float32 numpy arrays},
+    as the JAX package's `save_params` writes it."""
+
+    def walk(mod: nn.Module) -> Tree:
+        if hasattr(mod, "to_flax"):
+            return mod.to_flax()
+        return {name: walk(child) for name, child in mod.named_children()}
+
+    return {"params": walk(module)}
+
+
+def reset_parameters(module: nn.Module,
+                     generator: Optional[torch.Generator] = None
+                     ) -> nn.Module:
+    """Every layer of `module` back to flax's default init, drawn from
+    `generator` (a CPU generator; None = torch's global one), in module
+    order.  Returns the module."""
+    for mod in module.modules():
+        if hasattr(mod, "to_flax"):
+            mod.reset_parameters(generator)
+    return module
+
+
 def load_params(path: str) -> Tree:
     """The flax parameter tree of a bundled checkpoint: a pickle of nested
     dicts of numpy arrays, written by the JAX package's `save_params`."""
@@ -173,12 +247,13 @@ _MODEL_CACHE: Dict[Tuple, nn.Module] = {}
 
 
 def load_model(cls, path: str, device=None) -> nn.Module:
-    """`cls()` filled from the checkpoint at `path`, in eval mode on
-    `device` (None = the card); process-cached per (class, file, device)."""
+    """`cls()` filled from the checkpoint at `path`, frozen (no parameter
+    requires a gradient) and in eval mode on `device` (None = the card);
+    process-cached per (class, file, device)."""
     dev = resolve_device(device)
     key = (cls, os.path.abspath(path), os.path.getmtime(path), str(dev))
     model = _MODEL_CACHE.get(key)
     if model is None:
         model = load_flax_params(cls(), load_params(path))
-        model = _MODEL_CACHE[key] = model.to(dev).eval()
+        model = _MODEL_CACHE[key] = model.requires_grad_(False).to(dev).eval()
     return model

@@ -14,8 +14,8 @@ candidates, and a rule verdict of False vetoes
 
 The frame pipeline (projection, flank-homogeneity statistics, rule) runs
 as batched tensor functions over [B, R, 2W] record buckets on the
-genome's device.  Training-frame generation and the mesh variant are not
-ported (ROADMAP items 16.5 and 16.6).
+genome's device; `make_training_frames` turns labeled intervals into the
+CNN's training inputs.  The mesh variant waits for the multi-GPU port.
 """
 
 from __future__ import annotations
@@ -73,6 +73,24 @@ def _frame_inputs(
     if len(rows) < 1:
         return None
     return center.astype(np.uint8), rows
+
+
+def both_ends_frame(genome: Genome, rec: LTRRecord, copies,
+                    max_rows: int = 100) -> Optional[np.ndarray]:
+    """uint8 [R, 2 (FLANK + CORE)] left | right boundary frames of each
+    copy, projected onto the record's own frame on the genome's device
+    (FiLTR's `.matrix` files, `get_both_ends_frame`, src/Util.py:1401-1497),
+    or None without copy context."""
+    inputs = _frame_inputs(genome, rec, copies, max_rows)
+    if inputs is None:
+        return None
+    center, rows = inputs
+    dev = genome.device
+    mat, lens = pad_seqs(rows, 2 * (FRAME_FLANK + FRAME_CORE),
+                         n_rows=pad_rows(len(rows)))
+    return project_to_center(torch.from_numpy(center).to(dev),
+                             torch.from_numpy(mat).to(dev),
+                             torch.from_numpy(lens).to(dev)).cpu().numpy()
 
 
 def _rule_core(M: torch.Tensor) -> torch.Tensor:
@@ -445,3 +463,44 @@ def cross_class_filter(
                     len(routed), len(records),
                     {c: len(v) for c, v in pools.items()})
     return kept, pools
+
+
+def make_training_frames(
+    genome: Genome,
+    positives: Sequence[LTRRecord],
+    negatives: Sequence[Tuple[int, int]],
+    cfg: PipelineConfig,
+    gindex: Optional[GenomeIndex] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The CNN's training data on the genome's device: (images float32
+    [N, 100, 400, 3], k-mer planes float32 [N, 16, 16, 2], labels int32
+    [N], 1 = a real LTR element) of the positive records and the negative
+    intervals that have a both-ends frame, positives first (the
+    reference's Reproduction/ scripts build samples the same way from
+    curated and rejected candidates)."""
+    dev = genome.device
+    gindex = gindex or GenomeIndex(genome, cfg.align)
+    finder = CopyFinder(gindex)
+    imgs, kms, labels = [], [], []
+    for label, items in ((1, [(r.start, r.end) for r in positives]),
+                         (0, list(negatives))):
+        if not items:
+            continue
+        copy_sets = finder.find_copies(
+            [genome.extract(int(s), int(e)) for s, e in items],
+            min_coverage=0.8, max_copies=cfg.msa.max_copies)
+        for (s, e), copies in zip(items, copy_sets):
+            rec = LTRRecord(start=int(s), end=int(e), lltr_start=int(s),
+                            lltr_end=int(s), rltr_start=int(e),
+                            rltr_end=int(e), identity=1.0, insert_time=0.0)
+            M = both_ends_frame(genome, rec, copies)
+            if M is None:
+                continue
+            img, km = cnn_inputs(M, dev)
+            imgs.append(img)
+            kms.append(km)
+            labels.append(label)
+    if not imgs:
+        return (np.zeros((0, 100, 2 * (FRAME_FLANK + FRAME_CORE), 3)),
+                np.zeros((0, 16, 16, 2)), np.zeros(0, np.int32))
+    return np.stack(imgs), np.stack(kms), np.array(labels, np.int32)

@@ -29,6 +29,7 @@ from hite_tpu_torch.ops import kmer as tkmer
 from hite_tpu_torch.ops import protein as tprot
 from hite_tpu_torch.ops import seedext as tseed
 from hite_tpu_torch.pipeline import domain as tdom
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -16,6 +16,7 @@ import torch
 
 from hite_tpu.ops import eahelitron as jea
 from hite_tpu_torch.ops import eahelitron as tea
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

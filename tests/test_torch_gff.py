@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

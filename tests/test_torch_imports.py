@@ -44,6 +44,9 @@ MODULES = [
     "hite_tpu_torch.parallel.multihost", "hite_tpu_torch.pipeline.rnaseq",
     "hite_tpu_torch.pipeline.pan", "hite_tpu_torch.scripts.pan_run",
     "hite_tpu_torch.ops.pack2", "hite_tpu_torch.scripts.scale_run",
+    "hite_tpu_torch.models.train", "hite_tpu_torch.models.synthetic",
+    "hite_tpu_torch.models.weak_labels", "hite_tpu_torch.models.pretrain",
+    "hite_tpu_torch.scripts.ltr_seeds",
 ]
 
 
@@ -135,6 +138,18 @@ def test_entry_points_raise_without_gpu(monkeypatch):
                                              PipelineConfig(), device=d),
               lambda d: clean_genome({"c1": seq[0]}, PipelineConfig(),
                                      device=d)]
+    from hite_tpu_torch.models.features import FEATURE_DIM
+    from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
+    from hite_tpu_torch.models.train import create_state
+    from hite_tpu_torch.models.trainer import make_dataset, train_classifier
+    from hite_tpu_torch.models.weak_labels import mine_weak_labels
+
+    X = np.zeros((2, FEATURE_DIM), np.float32)
+    calls += [lambda d: make_dataset({"a#DNA/hAT": seq[0]}, device=d),
+              lambda d: train_classifier(X, np.zeros(2, np.int32), epochs=1,
+                                         device=d),
+              lambda d: create_state(LTRFilterCNN(), device=d),
+              lambda d: mine_weak_labels([], device=d)]
     for call in calls:
         with pytest.raises(RuntimeError):
             call(None)
@@ -164,6 +179,35 @@ def test_pan_main_raises_without_gpu(monkeypatch, tmp_path):
         main(["--pan_genomes_dir", str(tmp_path / "g"), "--out_dir",
               str(tmp_path / "o"), "--skip_analyze", "1"])
     assert not (tmp_path / "o").exists()
+
+
+def test_pretrain_raises_without_gpu(monkeypatch, tmp_path):
+    """Pretraining runs on the card unless told "cpu": every entry point
+    refuses before it builds a dataset or writes a checkpoint."""
+    import numpy as np
+
+    from hite_tpu_torch.models import pretrain
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "m.pkl")
+    z = np.zeros((2, 4, 4, 3), np.float32)
+    for call in (lambda: pretrain.pretrain_superfamily(out=out),
+                 lambda: pretrain.pretrain_ltr_filter(out=out),
+                 lambda: pretrain.train_ltr_filter(z, z, np.zeros(2)),
+                 lambda: pretrain.main(["--out_dir", str(tmp_path / "d")])):
+        with pytest.raises(RuntimeError, match="GPU"):
+            call()
+    assert not os.listdir(tmp_path)
+
+
+def test_ltr_seeds_raises_without_gpu(monkeypatch, capsys):
+    """The LTR seed sweep retrains on the card unless told "cpu"."""
+    from hite_tpu_torch.scripts.ltr_seeds import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="GPU"):
+        main(["--seeds", "0", "0"])
+    assert capsys.readouterr().out == ""
 
 
 def test_scale_run_raises_without_gpu(monkeypatch, tmp_path):

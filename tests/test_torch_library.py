@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_modules_path import CODON
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

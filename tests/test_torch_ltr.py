@@ -22,7 +22,9 @@ import torch
 
 # the 7-copy LTR genome, the one chip_smoke.py also runs on the card
 from chip_smoke import ltr6_genome
-from test_torch_tir_path import _parity_genome
+from test_torch_tir_path import (  # noqa: F401  (autouse)
+    _parity_genome, compile_cache,
+)
 
 torch.set_num_threads(2)
 

@@ -14,6 +14,7 @@ import pytest
 
 from chip_smoke import ltr6_genome
 from test_torch_ltr import STAGES, run_chains
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,9 @@ import torch
 
 from chip_smoke import ltr6_genome
 from test_ltr import _make_ltr_genome
-from test_torch_tir_path import _substrate
+from test_torch_tir_path import (  # noqa: F401  (autouse)
+    _substrate, compile_cache,
+)
 
 torch.set_num_threads(2)
 

@@ -32,6 +32,7 @@ from hite_tpu_torch.models import features as tfeat
 from hite_tpu_torch.models import ltr_filter as tltr
 from hite_tpu_torch.models import trainer as ttrain
 from hite_tpu_torch.models import bundled_model_path
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 
@@ -71,7 +72,8 @@ def _both(name, tree):
         fn = jax.jit(lambda p, a, b: jltr.LTRFilterCNN().apply(p, a, b))
         return fn, convert.load_flax_params(tltr.LTRFilterCNN(), tree)
     fn = jax.jit(lambda p, x: jcls.SuperfamilyCNN().apply(p, x))
-    return fn, convert.load_flax_params(tcls.SuperfamilyCNN(), tree)
+    # eval mode: flax applies without train=True, so without dropout
+    return fn, convert.load_flax_params(tcls.SuperfamilyCNN(), tree).eval()
 
 
 # ---- the converter
@@ -170,7 +172,7 @@ def test_logits_flax_initialised(name):
         model = convert.load_flax_params(tcls.SuperfamilyCNN(),
                                          jax.tree.map(np.asarray, init))
         with torch.no_grad():
-            got = model(_t(X)).numpy()
+            got = model.eval()(_t(X)).numpy()
         tol = SF_TOL
     assert np.abs(ref - got).max() <= tol
     assert np.array_equal(ref.argmax(1), got.argmax(1))

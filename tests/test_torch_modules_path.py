@@ -7,19 +7,29 @@ TIR, Helitron and non-LTR gates, `prepare_families`, ONE shared copy join,
 each module's verification, and `_rescue_low_copy` (structural TIR branch
 and the TIRPeps / HelitronPeps domain scans), with their own package's
 functions, on the CPU; every stage must agree exactly.  The port's
-verified modules come from its `run.modules_stage`.  Substrates: the
-160 kbp `pipeline_parity` genome and the 2 Mbp bench substrate.  Also the
-Helitron / non-LTR scanners (LCV banks and scores, tail scan) alone, and
-both scenarios of `tests/test_rescue.py`.
+stage 2 is its `run.modules_stage`, with the gates, plans and shared join
+it computes recorded on the way.  Then stages 3-5 (the FiLTR LTR stage,
+library assembly, annotation) on both packages from the JAX package's
+stage 1-2b results: LTR records, cross-class pools, every library dict
+and every annotation hit equal.  Substrates: the 160 kbp
+`pipeline_parity` genome and the 2 Mbp bench substrate (117 planted
+copies of 11 families in all four classes); one JAX replay of each serves
+every check.  This file runs the 2 Mbp substrate, and also the Helitron /
+non-LTR scanners (LCV banks and scores, tail scan) alone and both
+scenarios of `tests/test_rescue.py`; `test_torch_modules_path_160k.py`
+runs the same checks on the 160 kbp genome in another process.
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_tir_path import _substrate
+from test_torch_tir_path import (  # noqa: F401  (autouse)
+    _Recorded, _substrate, compile_cache,
+)
 
 torch.set_num_threads(2)
 
@@ -54,23 +64,26 @@ def _replay(port: bool, contigs, params_kw, align_kw):
     m["run"]._mask_tandem_regions(g)
     coarse = m["coarse"].coarse_discover(g, cfg.align, params)
     gindex = m["copies"].GenomeIndex(g, cfg.align, seg_len=params.seg_len)
-    gates = {"tir": m["tir"].gate_tir(g, coarse, cfg),
-             "helitron": m["helitron"].gate_helitron(g, coarse, cfg),
-             "non_ltr": m["non_ltr"].gate_non_ltr(g, coarse, cfg)}
-    plans = {k: m["verify"].prepare_families(g, v, cfg)
-             for k, v in gates.items() if len(v)}
-    union = [(k, i) for k, pl in plans.items() for i in pl.prefetch_idx]
-    sets = m["copies"].CopyFinder(gindex).find_copies(
-        [plans[k].seqs[i] for k, i in union], min_coverage=0.9,
-        max_copies=cfg.msa.max_copies)
-    per_mod = {k: [] for k in plans}
-    for (k, _i), cs in zip(union, sets):
-        per_mod[k].append(cs)
     if port:
-        # the port's stage 2 as run_pipeline runs it; the JAX side replays
-        # the closure body of its run_pipeline
-        mods = m["run"].modules_stage(g, coarse, cfg, gindex)
+        # the port's stage 2 as run_pipeline runs it, its gates, plans and
+        # shared join recorded on the way; the JAX side replays the
+        # closure body of its run_pipeline step by step
+        with _Recorded(m["run"]) as rec:
+            mods = m["run"].modules_stage(g, coarse, cfg, gindex)
+        gates, plans, sets = rec.gates, rec.plans_by_module(), rec.sets
     else:
+        gates = {"tir": m["tir"].gate_tir(g, coarse, cfg),
+                 "helitron": m["helitron"].gate_helitron(g, coarse, cfg),
+                 "non_ltr": m["non_ltr"].gate_non_ltr(g, coarse, cfg)}
+        plans = {k: m["verify"].prepare_families(g, v, cfg)
+                 for k, v in gates.items() if len(v)}
+        union = [(k, i) for k, pl in plans.items() for i in pl.prefetch_idx]
+        sets = m["copies"].CopyFinder(gindex).find_copies(
+            [plans[k].seqs[i] for k, i in union], min_coverage=0.9,
+            max_copies=cfg.msa.max_copies)
+        per_mod = {k: [] for k in plans}
+        for (k, _i), cs in zip(union, sets):
+            per_mod[k].append(cs)
         runners = {"tir": m["tir"].run_tir_detection,
                    "helitron": m["helitron"].run_helitron_detection,
                    "non_ltr": m["non_ltr"].run_non_ltr_detection}
@@ -106,7 +119,7 @@ def _same(a, b):
     assert np.array_equal(a["low_copy"], b["low_copy"])
 
 
-@pytest.fixture(scope="module", params=("parity_160k", "bench_2mbp"))
+@pytest.fixture(scope="module", params=("bench_2mbp",))
 def runs(request):
     contigs, params_kw, align_kw = _substrate(request.param)
     return (request.param, _replay(False, contigs, params_kw, align_kw),
@@ -163,6 +176,152 @@ def test_modules_stage_equals_replay(runs):
     assert list(got["verified"]) == list(ref["verified"]) == list(MODS)
     for k in MODS:
         _same(ref["verified"][k], got["verified"][k])
+
+
+# ---- stages 3-5 from the same stage 1-2b results
+
+def _port_module(m):
+    """A port ModuleResult holding the same families as a JAX one."""
+    from hite_tpu_torch.pipeline.candidates import CandidateSet
+    from hite_tpu_torch.pipeline.verify import ModuleResult
+
+    return ModuleResult(
+        accepted=CandidateSet(
+            intervals=m.accepted.intervals.copy(),
+            meta={k: v.copy() for k, v in m.accepted.meta.items()}),
+        consensus=[c.copy() for c in m.consensus],
+        low_copy=CandidateSet(intervals=m.low_copy.intervals.copy()),
+        copy_counts=list(m.copy_counts))
+
+
+def _jax_stages_3_4(rep, found):
+    """The JAX run_pipeline's stage 3 closure body and stage 4."""
+    from hite_tpu.models import bundled_model_path
+    from hite_tpu.models.trainer import load_params
+    from hite_tpu.pipeline.library import build_library
+    from hite_tpu.pipeline.ltr import (
+        LTRResult, classify_ltr_records, run_ltr_detection,
+    )
+    from hite_tpu.pipeline.ltr_deep import (
+        cross_class_filter, deep_filter_records,
+    )
+
+    g, cfg, gindex = rep["genome"], rep["cfg"], rep["gindex"]
+    g.mask_intervals((int(s), int(e)) for arr in found for s, e in arr)
+    res = run_ltr_detection(g, cfg, gindex, seg_len=gindex.seg_len)
+    kept = deep_filter_records(
+        g, res.records, cfg, gindex,
+        cnn_params=load_params(bundled_model_path("ltr_filter_cnn.pkl")))
+    kept, pools = cross_class_filter(g, kept, cfg, gindex)
+    ltr = LTRResult(records=kept, cross_class=pools)
+    if ltr.records:
+        classify_ltr_records(g, ltr.records, cfg)
+    libs = build_library(g, cfg, ltr=ltr, **rep["mods"])
+    return g.masked.copy(), ltr, libs
+
+
+def _annotate(port, g, libs, cfg, gindex):
+    """Stage 5 as run_pipeline runs it: the merged library on the genome's
+    unmasked join."""
+    if port:
+        from hite_tpu_torch.pipeline.annotate import annotate_genome
+    else:
+        from hite_tpu.pipeline.annotate import annotate_genome
+    return annotate_genome(g, libs["merged"], cfg, gindex)
+
+
+def run_stages_3_5(name, rep):
+    """Stages 3-5 on both packages from the JAX replay `rep` of stages
+    1-2b: (JAX (masked, ltr, libs, hits), port (masked, ltr, libs, hits),
+    launches).  The JAX side runs the body of its `run_pipeline`'s stage 3
+    (masking with the families accepted before the rescue,
+    `run_ltr_detection`, `deep_filter_records` with the bundled CNN,
+    `cross_class_filter`, `classify_ltr_records`), stage 4
+    (`build_library`) and stage 5 (`annotate_genome` with the merged
+    library); the port runs `run.ltr_stage`, `run.library_stage` and
+    `annotate.annotate_genome` from the tandem-masked genome and the JAX
+    package's module families."""
+    from hite_tpu_torch import kernels
+    from hite_tpu_torch.config import AlignConfig, PipelineConfig
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.pipeline.copies import GenomeIndex
+    from hite_tpu_torch.pipeline.run import library_stage, ltr_stage
+
+    contigs, _params_kw, align_kw = _substrate(name)
+    # run_pipeline masks with the families accepted BEFORE the rescue
+    found = [rep["verified"][k]["accepted"] for k in MODS]
+    masked = rep["genome"].masked.copy()
+    mods = {k: _port_module(m) for k, m in rep["mods"].items()}
+    ref = _jax_stages_3_4(rep, found)
+    ref += (_annotate(False, rep["genome"], ref[2], rep["cfg"],
+                      rep["gindex"]),)
+
+    g = Genome.from_dict(contigs, device="cpu")
+    g.masked = masked
+    tcfg = PipelineConfig(align=AlignConfig(**align_kw)
+                          ).with_genome_size(g.size)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(rep["cfg"])
+    gindex = GenomeIndex(g, tcfg.align, seg_len=rep["gindex"].seg_len)
+    kernels.reset_launches()
+    ltr = ltr_stage(g, tcfg, gindex, found, seg_len=gindex.seg_len)
+    libs = library_stage(g, tcfg, ltr=ltr, **mods)
+    hits = _annotate(True, g, libs, tcfg, gindex)
+    return ref, (g.masked.copy(), ltr, libs, hits), dict(kernels.LAUNCHES)
+
+
+@pytest.fixture(scope="module")
+def stages(runs):
+    """Stages 3-5 after the stage 1-2b checks of the same substrate (the
+    JAX side masks the replayed genome)."""
+    name, ref, _got = runs
+    return (name,) + run_stages_3_5(name, ref)
+
+
+def test_ltr_stage(stages):
+    """Stage 3: the masked genome, every LTR record and cross-class pool
+    equal."""
+    name, ref, got, _ = stages
+    (jm, jltr), (tm, tltr) = ref[:2], got[:2]
+    assert np.array_equal(jm, tm)
+    assert [dataclasses.asdict(r) for r in jltr.records] == \
+        [dataclasses.asdict(r) for r in tltr.records]
+    assert list(jltr.cross_class) == list(tltr.cross_class)
+    for k in jltr.cross_class:
+        assert [v.tolist() for v in jltr.cross_class[k]] == \
+            [v.tolist() for v in tltr.cross_class[k]]
+    assert len(tltr.records) >= (4 if name == "bench_2mbp" else 1)
+
+
+def test_library_stage(stages):
+    """Stage 4: every library dict equal, name for name and base for
+    base; the merged library holds the planted families' classes (the
+    DNA, RC/Helitron, SINE and LTR ones on the bench substrate); the SW
+    ran on the CPU's plain versions."""
+    name, ref, got, launches = stages
+    jl, tl = ref[2], got[2]
+    assert list(jl) == list(tl)
+    for key in jl:
+        assert list(jl[key]) == list(tl[key]), key
+        for n in jl[key]:
+            assert np.array_equal(jl[key][n], tl[key][n]), n
+    labels = {n.partition("#")[2].split("/")[0] for n in tl["merged"]}
+    want = {"DNA", "SINE", "LTR"} | ({"RC"} if name == "bench_2mbp" else set())
+    assert want <= labels
+    assert launches == {"sw": 0, "sw_protein": 0}   # CPU: plain versions
+
+
+def test_annotation(stages):
+    """Stage 5 on the merged library: every hit equal in every field;
+    identities (float64 ratios of the SW rescore's exact counts) compared
+    exactly; the planted copies are annotated."""
+    name, ref, got, _ = stages
+    assert [dataclasses.asdict(h) for h in ref[3]] == \
+        [dataclasses.asdict(h) for h in got[3]]
+    if name == "bench_2mbp":
+        assert len(got[3]) >= 100
+    else:
+        assert len(got[3]) >= 10
+        assert any(h.full_length for h in got[3])
 
 
 # ---- the Helitron and non-LTR scanners alone

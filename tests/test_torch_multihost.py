@@ -15,6 +15,7 @@ import pytest
 
 from hite_tpu.parallel import multihost as jmh
 from hite_tpu_torch.parallel import multihost as tmh
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -3,6 +3,7 @@ against the port's Python reader and the JAX package's reader and
 library, on edge-case files."""
 
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ from hite_tpu.io import fasta as jax_fasta
 from hite_tpu.native import runtime as jax_rt
 from hite_tpu_torch.io import fasta
 from hite_tpu_torch.native import runtime
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 CASES = {
     "crlf": b">c1 first contig\r\nACGTNACGT\r\nacgtn\r\n>c2\r\nGGGG\r\n",
@@ -75,8 +77,23 @@ def _jax_covered_bp(t, c):
                                         ptrs[2], ptrs[3], len(c)))
 
 
+@pytest.fixture(scope="module")
+def jax_lib():
+    """The JAX package's native library.  Its loader runs `make -B` where
+    the .so is missing and gives up for the rest of the process if that
+    build or the load fails, as it does while another test process
+    rebuilds the same file; so try again, for up to a minute, once that
+    build has written it."""
+    for _ in range(60):
+        if jax_rt._load() is not None:
+            return jax_rt._LIB
+        time.sleep(1)
+        jax_rt._TRIED = False
+    pytest.fail("the JAX package's native library does not load")
+
+
 @pytest.mark.parametrize("seed", range(4))
-def test_interval_helpers_match_jax(seed):
+def test_interval_helpers_match_jax(seed, jax_lib):
     rng = np.random.default_rng(seed)
     n = int(rng.integers(1, 60))
     s = rng.integers(0, 5000, n)

@@ -25,6 +25,7 @@ from hite_tpu_torch.ops import msa as tm
 from hite_tpu_torch.ops import selfjoin as ts
 from hite_tpu_torch.ops import tandem as tt
 from hite_tpu_torch.ops import tsd as ttsd
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

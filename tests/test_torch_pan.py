@@ -24,6 +24,7 @@ import torch
 
 from hite_tpu_torch.io.fasta import write_fasta
 from hite_tpu_torch.scripts.pan_run import downstream_inputs, small_pan_codes
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

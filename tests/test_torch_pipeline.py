@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_tir_path import _substrate
+from test_torch_tir_path import (  # noqa: F401  (autouse)
+    _substrate, compile_cache,
+)
 
 torch.set_num_threads(2)
 

@@ -21,6 +21,7 @@ import torch
 
 from hite_tpu.pipeline import rnaseq as jrs
 from hite_tpu_torch.pipeline import rnaseq as trs
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

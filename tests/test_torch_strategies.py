@@ -7,6 +7,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

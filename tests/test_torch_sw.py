@@ -20,6 +20,7 @@ from hite_tpu_torch.ops.terminal import (
     SW_ROWS, LocalAlign, batched_local_align, batched_local_align_auto,
     find_terminal_repeat, sw_plan, sw_table,
 )
+from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

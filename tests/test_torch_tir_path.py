@@ -3,19 +3,58 @@
 Both sides replay `run_pipeline`'s stages for `te_type="tir"` up to the
 TIR module's verified families — tandem mask, selfjoin coarse discovery,
 genome index, TIR gate, `prepare_families`, the shared copy join and
-`run_tir_detection` — with their own package's functions, on the CPU, and
-every stage must agree exactly.  Two substrates: the 160 kbp
-`pipeline_parity` genome (its CoarseParams chunk the selfjoin) and the
-2 Mbp bench substrate with defaults.
+`run_tir_detection` — on the CPU, and every stage must agree exactly: the
+JAX side with its package's functions one by one, the port side through
+its `run.modules_stage` with each intermediate recorded.  Substrates: the
+160 kbp `pipeline_parity` genome (its CoarseParams chunk the selfjoin),
+the same cut into two contigs, and the 2 Mbp bench substrate with
+defaults.
 """
 
+import contextlib
+import copy
 import dataclasses
+import os
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(2)
+
+
+@contextlib.contextmanager
+def jax_compile_cache():
+    """JAX's persistent compilation cache in the checkout's .jax_cache/
+    (gitignored) while the block runs, then the settings it found.  The
+    parity files replay the JAX package on the same substrates in separate
+    xdist processes, and so a process loads what another one compiled; the
+    JAX package's own tests, in the same processes, run without it."""
+    from jax.experimental.compilation_cache import compilation_cache as cc
+
+    new = {"jax_compilation_cache_dir": os.path.join(
+               os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+               ".jax_cache"),
+           "jax_persistent_cache_min_compile_time_secs": 0.2}
+    old = {k: getattr(jax.config, k) for k in new}
+    for k, v in new.items():
+        jax.config.update(k, v)
+    cc.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            jax.config.update(k, v)
+        cc.reset_cache()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def compile_cache():
+    """`jax_compile_cache` around a parity module (import it to use it)."""
+    with jax_compile_cache():
+        yield
+
 
 SUBSTRATES = ("parity_160k", "two_contigs", "bench_2mbp")
 
@@ -84,6 +123,59 @@ def _modules(port: bool):
     return config, genome, coarse, copies, run, tir, verify
 
 
+class _Recorded:
+    """What the port's `run.modules_stage` computed on its way: each gate's
+    intervals, each module's plan and the shared join's copy sets, recorded
+    by wrapping the functions it calls (in `pipeline.run`'s namespace)
+    for the length of the `with` block."""
+
+    NAMES = ("gate_tir", "gate_helitron", "gate_non_ltr",
+             "prepare_families", "CopyFinder")
+
+    def __init__(self, run):
+        self.run = run
+        self.gates, self.plans, self.sets = {}, [], None
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.run, n) for n in self.NAMES}
+        rec = self
+
+        def gate(key, fn):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                rec.gates[key] = out.copy()
+                return out
+            return wrapped
+
+        def prepare(*a, **kw):
+            out = self.saved["prepare_families"](*a, **kw)
+            rec.plans.append(copy.deepcopy(out))
+            return out
+
+        class Finder(self.saved["CopyFinder"]):
+            def find_copies(self, *a, **kw):
+                out = super().find_copies(*a, **kw)
+                if rec.sets is None:
+                    rec.sets = copy.deepcopy(out)
+                return out
+
+        for key in ("tir", "helitron", "non_ltr"):
+            setattr(self.run, f"gate_{key}", gate(key,
+                                                  self.saved[f"gate_{key}"]))
+        self.run.prepare_families = prepare
+        self.run.CopyFinder = Finder
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.run, n, fn)
+
+    def plans_by_module(self):
+        keys = [k for k, g in self.gates.items() if len(g)]
+        assert len(keys) == len(self.plans)
+        return dict(zip(keys, self.plans))
+
+
 def _replay(port: bool, contigs, params_kw, align_kw):
     config, genome_m, coarse_m, copies_m, run_m, tir_m, verify_m = \
         _modules(port)
@@ -97,16 +189,27 @@ def _replay(port: bool, contigs, params_kw, align_kw):
     run_m._mask_tandem_regions(g)
     coarse = coarse_m.coarse_discover(g, cfg.align, params)
     gindex = copies_m.GenomeIndex(g, cfg.align, seg_len=params.seg_len)
-    gated = tir_m.gate_tir(g, coarse, cfg)
-    plan = verify_m.prepare_families(g, gated, cfg)
-    seqs = [plan.seqs[i] for i in plan.prefetch_idx]
-    sets = copies_m.CopyFinder(gindex).find_copies(
-        seqs, min_coverage=0.9, max_copies=cfg.msa.max_copies)
-    result = tir_m.run_tir_detection(g, coarse, cfg, gindex, gated=gated,
-                                     plan=plan, rep_copy_sets=sets)
+    mods = None
+    if port:
+        # the port's stage 2 as run_pipeline runs it (`run.modules_stage`),
+        # its gate, plan and join recorded on the way; the JAX side replays
+        # the closure body of its run_pipeline step by step
+        with _Recorded(run_m) as rec:
+            mods = run_m.modules_stage(g, coarse, cfg, gindex)
+        gated, (plan,), sets = rec.gates["tir"], rec.plans, rec.sets
+        seqs = [plan.seqs[i] for i in plan.prefetch_idx]
+        result = mods["tir"]
+    else:
+        gated = tir_m.gate_tir(g, coarse, cfg)
+        plan = verify_m.prepare_families(g, gated, cfg)
+        seqs = [plan.seqs[i] for i in plan.prefetch_idx]
+        sets = copies_m.CopyFinder(gindex).find_copies(
+            seqs, min_coverage=0.9, max_copies=cfg.msa.max_copies)
+        result = tir_m.run_tir_detection(g, coarse, cfg, gindex, gated=gated,
+                                         plan=plan, rep_copy_sets=sets)
     return dict(genome=g, cfg=cfg, params=params, coarse=coarse,
                 gindex=gindex, gated=gated, plan=plan, seqs=seqs, sets=sets,
-                result=result)
+                result=result, mods=mods)
 
 
 @pytest.fixture(scope="module", params=SUBSTRATES)
@@ -177,14 +280,13 @@ def test_module_result(runs):
 
 def test_modules_stage_equals_replay(runs):
     """`run.modules_stage` (the closure body of `run_pipeline`) runs
-    exactly the replayed gate -> plan -> shared join -> TIR module."""
-    from hite_tpu_torch.pipeline.run import modules_stage
-
-    _, _, got = runs
-    mods = modules_stage(got["genome"], got["coarse"], got["cfg"],
-                         got["gindex"])
-    assert list(mods) == ["tir"]
-    _same_result(got["result"], mods["tir"])
+    exactly the replayed gate -> plan -> shared join -> TIR module: the
+    port side of the checks above is its run, with its gate, plan and join
+    recorded; it runs the TIR module alone, and its families equal the JAX
+    replay's."""
+    _, ref, got = runs
+    assert list(got["mods"]) == ["tir"]
+    _same_result(ref["result"], got["mods"]["tir"])
 
 
 def test_chunked_libjoin(runs):
