@@ -36,7 +36,17 @@ Phases, each printing its own lines:
      that path's shapes; the main path again, warm, under the profiler
      (device busy share, top device ops); then the same run from the
      substrate's FASTA loaded packed (Genome.from_fasta(packed=True)),
-     every file byte-equal to the unpacked run's;
+     every file byte-equal to the unpacked run's; then the mesh path on a
+     mesh of every card (two or more) or of 8 shards of the one card:
+     scripts.dryrun_multichip's four checks (the chunked self-join,
+     annotation, one LTR-filter training step and run_pipeline on the
+     160 kbp parity genome, each sharded against unsharded), then, counts
+     zeroed just before and read just after, run_pipeline(annotate=True,
+     mesh=...) on the 8 Mbp substrate, every file byte-equal to the main
+     path's with the same sw and sw_protein launch counts, each launch
+     held against the plain version on its own inputs; the sharded
+     LTR-filter step at batch 16 of 100 x 400 frames against the
+     unsharded one; scripts.mesh_scaling's walls at 1, 2, 4 and 8 shards;
   6. both CNNs with the bundled parameters, cuda against the CPU: logits
      within the tests' tolerances, decisions equal; then the training
      path: make_dataset (TSD and domain blocks) on 4 synthetic TEs a class
@@ -98,8 +108,8 @@ Phases, each printing its own lines:
      11/11; TP/FP/FN beside the JAX package's record), and the coarse
      "pairs" and the segments copy mapper, cuda against the CPU, on the
      240 kbp modules genome;
- 15. the kernel line (launches of the main, pan, scale and training
-     paths), the card line, and the result line (last).
+ 15. the kernel line (launches of the main, pan, scale, training and
+     mesh paths), the card line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
 Detailed numbers go to smoke_out/chip_smoke.json, the runs' output files
@@ -651,10 +661,11 @@ def modules_path(bg, device, **cfg_kw):
                 mods=mods, low=low, rescued=rescued)
 
 
-def pipeline_run(bg, device, out_dir, **cfg_kw):
+def pipeline_run(bg, device, out_dir, mesh=None, **cfg_kw):
     """The port's own `run_pipeline` on one contig of codes, default config
     with `cfg_kw` (stages 0-7 as the config asks, the writers under
-    `out_dir`), default CoarseParams.  Returns (genome, RunResult)."""
+    `out_dir`), default CoarseParams, on `mesh` when given.  Returns
+    (genome, RunResult)."""
     from hite_tpu_torch.config import PipelineConfig
     from hite_tpu_torch.genome import Genome
     from hite_tpu_torch.pipeline.coarse import CoarseParams
@@ -664,7 +675,7 @@ def pipeline_run(bg, device, out_dir, **cfg_kw):
     if out_dir:
         shutil.rmtree(out_dir, ignore_errors=True)
     res = run_pipeline(genome, PipelineConfig(**cfg_kw), out_dir=out_dir,
-                       coarse_params=CoarseParams())
+                       coarse_params=CoarseParams(), mesh=mesh)
     return genome, res
 
 
@@ -1073,6 +1084,91 @@ def check_ltr6() -> dict:
     return dict(cnn_forwards=cnn, records=len(recs), files=names,
                 library=sorted(a.libs["merged"]),
                 annotation_hits=len(a.annotation))
+
+
+# ---------------------------------------------------------------- mesh path
+
+def mesh_devices():
+    """Every card when the machine has two or more, else 8 shards of the
+    one card (the counterpart of the JAX package's virtual devices: it
+    measures the sharding's cost, not a multi-card speedup)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)], \
+            f"{n} distinct cards"
+    return [torch.device("cuda", 0)] * 8, "8 shards of cuda:0"
+
+
+def mesh_phase(bg, main_dir, main_launches, sass) -> dict:
+    """The mesh path on the card: `dryrun_multichip`'s four checks, then
+    `run_pipeline(annotate=True, mesh=...)` on the 8 Mbp substrate (every
+    file byte-equal to the main path's, the same SW launches, each held
+    against the plain version on its own inputs), the sharded LTR-filter
+    step at the JAX package's batch (16 frames of 100 x 400) against the
+    unsharded one, and `scripts.mesh_scaling` at 1, 2, 4 and 8 shards."""
+    from hite_tpu_torch.parallel.mesh import make_mesh
+    from hite_tpu_torch.scripts import dryrun_multichip as dry
+    from hite_tpu_torch.scripts import mesh_scaling
+
+    devices, which = mesh_devices()
+    mesh = make_mesh(devices=devices)
+    print(f"mesh phase: {which}, mesh {mesh.shape}; card {card_line()}")
+    t0 = time.perf_counter()
+    dr = dry.dryrun_multichip(len(devices), devices, "cuda",
+                              out_dir=os.path.join("smoke_out",
+                                                   "mesh_dryrun"))
+    dry_s = time.perf_counter() - t0
+    print(f"mesh dryrun: {dry_s:.2f} s; coarse candidates "
+          f"{dr['coarse_candidates']} sharded == single; annotation hits "
+          f"{dr['annotation_hits']} sharded == single; train step "
+          f"{dr['train_step']}; run_pipeline(mesh) on the 160 kbp parity "
+          f"genome: {len(dr['full_pipeline']['files'])} files byte-equal, "
+          f"{dr['full_pipeline']['library_entries']} library entries, "
+          f"{dr['full_pipeline']['annotation_hits']} hits")
+
+    mesh_dir = os.path.join("smoke_out", "mesh_main")
+    hlog.STAGE_TIMES.clear()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RecordSW() as rec:
+        _genome, run = pipeline_run(bg, "cuda", mesh_dir, mesh=mesh,
+                                    annotate=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    stages = dict(hlog.STAGE_TIMES)
+    names = same_files(main_dir, mesh_dir)
+    print(f"mesh path: run_pipeline(annotate=True, mesh) at {len(bg)} bp: "
+          f"wall {wall:.2f} s; {len(names)} files byte-equal to the main "
+          f"path's; sw launches {launches['sw']} (main path "
+          f"{main_launches['sw']}), sw_protein {launches['sw_protein']} "
+          f"(main {main_launches['sw_protein']}); stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              stages.items(), key=lambda kv: -kv[1])[:6]))
+    assert launches["sw"] == main_launches["sw"] > 0, launches
+    assert launches["sw_protein"] == main_launches["sw_protein"], launches
+    assert len(rec.calls) == launches["sw"] + launches["sw_protein"]
+    del run, _genome
+    rows = check_recorded(rec.calls, sass, "mesh path")
+    del rec
+
+    train = dry.train_step_check(mesh, "cuda", B=16, height=100,
+                                 width=400)
+    print(f"mesh train step (B 16, 100 x 400 frames, {train['tp_sharded']} "
+          f"of {train['params']} parameters sliced over tp): {train}")
+
+    scaling = mesh_scaling.run((1, 2, 4, 8), reps=3, device="cuda")
+    print("mesh scaling (family analysis, 64 families x 24 copies, 2 Mbp): "
+          + "  ".join(f"{n} shards {r['warm_wall_s']:.4f} s"
+                      f"{'' if r['distinct'] else ' (one card)'}"
+                      for n, r in scaling["by_mesh"].items()))
+    return dict(devices=[str(d) for d in devices], which=which,
+                mesh=mesh.shape, dryrun=dr, dryrun_s=dry_s,
+                main=dict(wall_s=wall, files=names, launches=launches,
+                          stages=stages),
+                launches=launches, sw_rows=rows, train_step=train,
+                scaling=scaling)
 
 
 # ---------------------------------------------------------------- pan path
@@ -2410,9 +2506,13 @@ def main() -> int:
     del prof
     # ---- the packed host tier: the same run from a packed FASTA load
     report["packed"] = check_packed(bg, main_dir)
-    del bg
-
     lap("native fasta, tir path, main path, packed run")
+    # ---- the mesh path: the dryrun, run_pipeline(mesh=...) against the
+    # main path's files, the sharded training step, the scaling walls
+    mesh = mesh_phase(bg, main_dir, launches, sass)
+    report["mesh"] = mesh
+    del bg
+    lap("mesh")
     # ---- both CNNs with the bundled parameters, cuda against the CPU
     report["cnn"] = check_cnns()
     lap("cnns")
@@ -2482,10 +2582,10 @@ def main() -> int:
     lap("hard substrate and strategies")
 
     # ---- kernel line: time of each kernel weighted over the launches of
-    # the main, pan, scale and training paths (device time from the profiler where
-    # it saw the kernel, else the event time) and of the bound (the
-    # recurrence's int32 operations at the int32 rate); `launches` is the
-    # paths' counts together, each also listed by path
+    # the main, pan, scale, training and mesh paths (device time from the
+    # profiler where it saw the kernel, else the event time) and of the
+    # bound (the recurrence's int32 operations at the int32 rate);
+    # `launches` is the paths' counts together, each also listed by path
     entries = []
     for kname, replaces, checks in (
             ("sw", "hite_tpu/ops/terminal_pallas.py:47",
@@ -2493,13 +2593,15 @@ def main() -> int:
             ("sw_protein", "hite_tpu/ops/terminal.py:157",
              prot_rows + prot_borders)):
         mr = (main_rows[kname] + pan["sw_rows"][kname]
-              + scale["sw_rows"][kname] + train["sw_rows"][kname])
+              + scale["sw_rows"][kname] + train["sw_rows"][kname]
+              + mesh["sw_rows"][kname])
         tot = sum(r["launches"] for r in mr)
         wavg = lambda key: sum(r[key] * r["launches"] for r in mr) / tot
         by_path = {"main": launches[kname],
                    "pan": pan["launches"][kname],
                    "scale": scale["launches"][kname],
-                   "train": train["launches"][kname]}
+                   "train": train["launches"][kname],
+                   "mesh": mesh["launches"][kname]}
         entries.append({
             "name": kname, "route": "cuda",
             "source": "hite_tpu_torch/csrc/sw.cu", "replaces": replaces,

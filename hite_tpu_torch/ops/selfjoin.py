@@ -169,4 +169,4 @@ def selfjoin_scan_packed(s_dbin, s_qpos, s_spos, n_pairs, **kw
     hs = selfjoin_scan(s_dbin, s_qpos, s_spos, n_pairs, **kw)
     return torch.stack([hs.qs, hs.qe, hs.ss, hs.se,
                         hs.valid.to(torch.int32),
-                        torch.full_like(hs.qs, int(hs.n_pairs))])
+                        hs.n_pairs.to(hs.qs.dtype).expand_as(hs.qs)])

@@ -6,9 +6,9 @@ library-vs-genome mode, each hit's identity is rescored by the batched
 Smith-Waterman (the hand-written kernel on the card), overlapping hits are
 resolved per locus by alignment score, and the GFF / .out / .tbl /
 full-length GFF files are written (hits covering >= 95% of their
-consensus are full length, `Util.py:13679-13753`).  The JAX package's
-`mesh` argument (a sharded library batch) is not ported: ROADMAP item
-16.5.
+consensus are full length, `Util.py:13679-13753`).  With a `mesh`
+the copy finder is built on it (`pipeline/copies.py` says what a mesh
+shards there); the hits are the unsharded ones.
 """
 
 from __future__ import annotations
@@ -82,18 +82,19 @@ def annotate_genome(
     cfg: PipelineConfig,
     gindex: Optional[GenomeIndex] = None,
     min_hit_fraction: float = 0.3,
+    mesh=None,
     rescore: bool = True,
 ) -> List[AnnotationHit]:
     """Map library entries onto the genome; returns per-locus hits.
 
     One copy join over the UNMASKED genome (`gindex`, default
     `GenomeIndex(genome, cfg.align)`, reuses the sorted stream cached on
-    the genome).  The JAX package builds its finder with `max_chains=256`,
-    which only its legacy segments mapper reads; the port's join needs no
-    such argument.  `rescore=False` skips the SW identity pass for
-    interval-only consumers (the BM_HiTE / BM_EDTA evaluators)."""
+    the genome).  The finder is the JAX package's, `max_chains=256` (read
+    by the segments mapper only) on `mesh` (`parallel.mesh.Mesh`, or
+    None).  `rescore=False` skips the SW identity pass for interval-only
+    consumers (the BM_HiTE / BM_EDTA evaluators)."""
     gindex = gindex or GenomeIndex(genome, cfg.align)
-    finder = CopyFinder(gindex)
+    finder = CopyFinder(gindex, max_chains=256, mesh=mesh)
     names = list(library.keys())
     seqs = [library[n] for n in names]
 

@@ -5,12 +5,15 @@ copies, extend them with flanking context, build the family alignment
 matrix (anchor-projection MSA), and let per-column homology decide
 whether the candidate is a real TE and where its boundaries lie.  Many
 families are analyzed in one batched call: the family axis is an explicit
-leading batch dimension (the JAX package vmaps `_analyze_core`).  The
-mesh-sharded variant is not ported.
+leading batch dimension (the JAX package vmaps `_analyze_core`).  With a
+`mesh` the family axis is sharded over every mesh device (`parallel.mesh.
+run_sharded`; the JAX package's `_analyze_batch_sharded`): the analysis
+is row-independent, so the result is the unsharded one bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -24,6 +27,7 @@ from hite_tpu_torch.ops.boundary import (
     adaptive_threshold, column_stats, consensus, search_boundary,
 )
 from hite_tpu_torch.ops.msa import project_to_center
+from hite_tpu_torch.parallel.mesh import Mesh, run_sharded
 from hite_tpu_torch.pipeline.candidates import bucket_for, pad_seqs
 from hite_tpu_torch.pipeline.copies import CopyHit
 from hite_tpu_torch.utils.log import count
@@ -171,12 +175,19 @@ def _prep_family(genome: Genome, interval: Tuple[int, int],
             R_bucket, trunc_at, trunc_gap)
 
 
-def _run_batch(genome: Genome, centers, mats, lens, al, ar, trunc_at):
-    """Upload one padded family batch, analyze it, fetch to host."""
+def _run_batch(genome: Genome, centers, mats, lens, al, ar, trunc_at,
+               mesh: Optional[Mesh] = None):
+    """Upload one padded family batch, analyze it (its family axis
+    sharded over `mesh` when given), fetch to host."""
     dev = genome.device
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    M, homo, cons, left, right = _analyze_core(
-        t(centers), t(mats), t(lens), t(al), t(ar), trunc_at=trunc_at)
+    fn = functools.partial(_analyze_core, trunc_at=trunc_at)
+    if mesh is not None:
+        M, homo, cons, left, right = run_sharded(
+            mesh, fn, centers, mats, lens, al, ar, device=dev)
+    else:
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        M, homo, cons, left, right = fn(t(centers), t(mats), t(lens), t(al),
+                                        t(ar))
     host = lambda x: x.cpu().numpy()
     return (host(M), host(homo), host(cons), host(left.found),
             host(left.pos), host(right.found), host(right.pos))
@@ -203,10 +214,13 @@ def analyze_families_batched(
     genome: Genome,
     items: Sequence[Tuple[Tuple[int, int], Sequence[CopyHit]]],
     cfg: MSAConfig,
+    mesh: Optional[Mesh] = None,
 ) -> List[Tuple[FamilyAnalysis, int]]:
     """Bucketed batched analysis of many families in few device calls:
     one batch per trunc mode, capped so F x R x W <= 2^23 cells, the
-    family dim padded to a power of two (as in the JAX package)."""
+    family dim padded to a power of two (as in the JAX package) and, with
+    `mesh`, on to a multiple of the mesh size, each batch's family axis
+    sharded over the mesh (identical results)."""
     preps = [_prep_family(genome, it, cp, cfg) for it, cp in items]
     out: List[Optional[Tuple[FamilyAnalysis, int]]] = [None] * len(items)
     buckets: dict = {}
@@ -222,6 +236,8 @@ def analyze_families_batched(
     for trunc_at, idxs in capped:
         F = len(idxs)
         Fp = max(4, 1 << (F - 1).bit_length())
+        if mesh is not None:
+            Fp = -(-Fp // mesh.size) * mesh.size
         rb = max(preps[i][7] for i in idxs)
         width = max(preps[i][6] for i in idxs)
         centers = np.full((Fp, width), 4, np.uint8)
@@ -237,7 +253,7 @@ def analyze_families_batched(
             al[b] = p[3]
             ar[b] = p[4]
         M, homo, cons, lf, lp, rf, rp = _run_batch(
-            genome, centers, mats, lens, al, ar, trunc_at)
+            genome, centers, mats, lens, al, ar, trunc_at, mesh)
         for b, i in enumerate(idxs):
             fa = FamilyAnalysis(
                 M=M[b], homo=homo[b], cons=cons[b],

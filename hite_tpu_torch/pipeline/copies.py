@@ -10,14 +10,25 @@ sides are its copies.  Candidates that share join k-mers are dealt into
 similarity waves so none starves of pairing slots.  Strategy "segments"
 (an explicit opt-in): the legacy mapper, every candidate against each
 genome segment's bucketed k-mer index (`ops.seedext`), chained on the
-device (`ops.chain.chain_hsps`), a block of segments at a time.  The
-mesh-sharded variant is not ported.
+device (`ops.chain.chain_hsps`), a block of segments at a time.
+
+With a `mesh` (`parallel.mesh.Mesh`) the segments mapper cuts its
+candidate batch over every mesh device, each segment's index replicated
+(the JAX package's `_cached_map_batch_sharded`); it keeps the single
+path's segment blocks and their row order, so its hits equal the
+unsharded mapper's.  The join under a mesh runs on the genome's device,
+as the JAX package's join does on its CPU backend (it shards the genome
+stream only on a TPU, with results identical either way); its indexed
+cache key carries the mesh's identity, as the JAX package's does.
+Partitioning the genome stream across cards is a multi-GPU sort whose
+exactness against the per-code caps (`_join_max_occ`, `fill_w`) is still
+to be shown (ROADMAP).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +43,7 @@ from hite_tpu_torch.ops.libjoin import (
     libjoin_scan_packed,
 )
 from hite_tpu_torch.ops.seedext import pair_hsps
+from hite_tpu_torch.parallel.mesh import Mesh, replicate, run_sharded
 from hite_tpu_torch.pipeline.candidates import pad_rows, pad_seqs
 from hite_tpu_torch.pipeline.coarse import chunk_slice
 from hite_tpu_torch.utils.log import count, logger
@@ -105,18 +117,30 @@ def _map_batch(cfg: AlignConfig, cand_kms: torch.Tensor, fwd: KmerIndex,
 
 
 def _map_block(cfg: AlignConfig, cand_mat: torch.Tensor, gindex: GenomeIndex,
-               s0: int, seg_block: int, out_budget: int, **geom
-               ) -> Tuple[np.ndarray, int]:
+               s0: int, seg_block: int, out_budget: int,
+               mesh: Optional[Mesh] = None, reps: Optional[dict] = None,
+               **geom) -> Tuple[np.ndarray, int]:
     """A candidate batch uint8 [B, W] against the segment block [s0, s0 +
     seg_block): (the first `out_budget` valid chains as int32 [n, 8] rows
     (cand, seg, strand, qs, qe, ss, se, nseeds), the count of valid
     chains).  Rows run strand-major, then segment, candidate and chain,
-    the order of the JAX package's `_cached_map_block` compaction."""
+    the order of the JAX package's `_cached_map_block` compaction.  With
+    `mesh`, each segment's candidate batch is cut over the mesh, every
+    shard against `reps[device]`, that device's (fwd, rc) indexes."""
     cand_kms = enc.kmer_codes(cand_mat, cfg.kmer_size)
     parts: List[List[torch.Tensor]] = [[], []]
     for s in range(s0, s0 + seg_block):
-        fc, rch = _map_batch(cfg, cand_kms, _segment(gindex.fwd, s),
-                             _segment(gindex.rc, s), **geom)
+        if mesh is None:
+            fc, rch = _map_batch(cfg, cand_kms, _segment(gindex.fwd, s),
+                                 _segment(gindex.rc, s), **geom)
+        else:
+            def one(km: torch.Tensor, s: int = s) -> Tuple[Chains, Chains]:
+                fwd, rc = reps[km.device]
+                return _map_batch(cfg, km, _segment(fwd, s),
+                                  _segment(rc, s), **geom)
+
+            fc, rch = run_sharded(mesh, one, cand_kms,
+                                  device=cand_kms.device)
         for strand, ch in ((0, fc), (1, rch)):
             B, C = ch.qs.shape
             cand_i = torch.arange(B, dtype=torch.int32,
@@ -138,12 +162,16 @@ class CopyFinder:
     def __init__(self, index: GenomeIndex, *, stride: int = 1,
                  max_hits: int = 8, diag_band: int = 32, run_gap: int = 96,
                  min_seeds: int = 4, max_hsps: int = 1024,
-                 max_chains: int = 128, strategy: str = "join",
-                 fill_w: int = 8):
+                 max_chains: int = 128, mesh: Optional[Mesh] = None,
+                 strategy: str = "join", fill_w: int = 8):
         if strategy not in ("join", "segments"):
             raise ValueError(f"unknown copy strategy {strategy!r}")
         self.index = index
+        self.mesh = mesh
         self.strategy = strategy
+        # the segments mapper's candidate rows divide over the mesh
+        self._batch_multiple = (mesh.size if mesh is not None
+                                and strategy == "segments" else 1)
         self.diag_band = diag_band
         self.run_gap = run_gap
         self.min_seeds = min_seeds
@@ -185,7 +213,9 @@ class CopyFinder:
         cfg = idx.cfg
         n_c = len(cand_seqs)
         out: List[List[CopyHit]] = [[] for _ in cand_seqs]
-        mat, lens = pad_seqs(cand_seqs, n_rows=pad_rows(n_c, min_rows=4))
+        m = self._batch_multiple
+        n_rows = pad_rows(n_c, min_rows=max(4, m))
+        mat, lens = pad_seqs(cand_seqs, n_rows=-(-n_rows // m) * m)
         lens_f = np.maximum(lens[:n_c].astype(np.float64), 1)
 
         def _collect(rows: np.ndarray) -> None:
@@ -222,13 +252,16 @@ class CopyFinder:
         W = mat.shape[1]
         row_cap = max(8, (1 << 21) // W)
         row_cap = 1 << (row_cap.bit_length() - 1)
+        reps = (None if self.mesh is None else replicate(
+            (idx.fwd, idx.rc), self.mesh.shard_devices()))
         for b0 in range(0, mat.shape[0], row_cap):
             sub_d = torch.from_numpy(mat[b0 : b0 + row_cap]).to(
                 idx.genome.device)
             seen: set = set()
             for s0 in starts:
                 rows, n_hits = _map_block(cfg, sub_d, idx, s0, SB,
-                                          self._out_budget, **self._geom)
+                                          self._out_budget, self.mesh, reps,
+                                          **self._geom)
                 if n_hits > self._out_budget:
                     logger.warning(
                         "find_copies: %d hits exceed the %d block budget; "
@@ -414,7 +447,8 @@ class CopyFinder:
         if Lp <= self.max_libjoin_bp:
             # INDEXED join: the sorted two-strand stream is built once per
             # genome and cached on the genome's device cache
-            ck = ("join_sorted", idx.use_masked, k, None)
+            ck = ("join_sorted", idx.use_masked, k,
+                  None if self.mesh is None else id(self.mesh))
             g_sorted = genome._device_cache.get(ck)
             if g_sorted is None:
                 g_sorted = libjoin_genome_sorted(flat_d, k=k)

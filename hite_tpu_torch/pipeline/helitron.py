@@ -258,10 +258,11 @@ def run_helitron_detection(
     gated: Optional[np.ndarray] = None,
     plan=None,
     rep_copy_sets=None,
+    mesh=None,
 ) -> ModuleResult:
     if gated is None:
         gated = gate_helitron(genome, coarse_intervals, cfg)
     return verify_families(
         genome, gated, cfg, make_helitron_judge(),
         min_copies=cfg.msa.min_copy_helitron, stage="helitron",
-        gindex=gindex, plan=plan, rep_copy_sets=rep_copy_sets)
+        gindex=gindex, plan=plan, rep_copy_sets=rep_copy_sets, mesh=mesh)

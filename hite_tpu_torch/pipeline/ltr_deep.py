@@ -14,8 +14,10 @@ candidates, and a rule verdict of False vetoes
 
 The frame pipeline (projection, flank-homogeneity statistics, rule) runs
 as batched tensor functions over [B, R, 2W] record buckets on the
-genome's device; `make_training_frames` turns labeled intervals into the
-CNN's training inputs.  The mesh variant waits for the multi-GPU port.
+genome's device, their record axis sharded over a `mesh` when one is
+given (the JAX package's `_frame_judge_batch_sharded`; row-independent,
+so bit-identical); `make_training_frames` turns labeled intervals into
+the CNN's training inputs.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from hite_tpu_torch.ops.boundary import (
     adaptive_threshold, column_stats, search_boundary,
 )
 from hite_tpu_torch.ops.msa import project_to_center
+from hite_tpu_torch.parallel.mesh import run_sharded
 from hite_tpu_torch.pipeline.candidates import pad_rows, pad_seqs
 from hite_tpu_torch.pipeline.copies import CopyFinder, GenomeIndex
 from hite_tpu_torch.pipeline.ltr import LTRRecord
@@ -265,6 +268,7 @@ def deep_filter_records(
     gindex: Optional[GenomeIndex] = None,
     cnn_model: Optional[LTRFilterCNN] = None,
     low_copy_threshold: int = 5,
+    mesh=None,
 ) -> List[LTRRecord]:
     """Filter intact-LTR records with the frame rule (+ the CNN when
     `cnn_model`, an `LTRFilterCNN` on the genome's device as
@@ -274,7 +278,9 @@ def deep_filter_records(
     Merge semantics (alter_deep_learning_results): rule False vetoes; the
     CNN only confirms among rule-True candidates with more than
     `low_copy_threshold` copies; fewer-copy candidates are judged by the
-    rule alone, like the reference."""
+    rule alone, like the reference.  With `mesh` (`parallel.mesh.Mesh`)
+    each bucket's record axis is padded to a multiple of the mesh size
+    and sharded over it."""
     dev = genome.device
     gindex = gindex or GenomeIndex(genome, cfg.align)
     finder = CopyFinder(gindex)
@@ -312,6 +318,8 @@ def deep_filter_records(
             for b0 in range(0, len(items), B):
                 sub = items[b0 : b0 + B]
                 Bp = max(1, 1 << (len(sub) - 1).bit_length())
+                if mesh is not None:
+                    Bp = -(-Bp // mesh.size) * mesh.size
                 centers = np.full((Bp, width2), 4, np.uint8)
                 mats = np.full((Bp, rb, width2), 4, np.uint8)
                 lens = np.zeros((Bp, rb), np.int32)
@@ -320,10 +328,15 @@ def deep_filter_records(
                     m, l = pad_seqs(rows, width2, n_rows=rb)
                     mats[bi] = m
                     lens[bi] = l
-                Ms, stats, rules = (t.cpu().numpy() for t in _frame_judge_core(
-                    torch.from_numpy(centers).to(dev),
-                    torch.from_numpy(mats).to(dev),
-                    torch.from_numpy(lens).to(dev)))
+                if mesh is not None:
+                    judged = run_sharded(mesh, _frame_judge_core, centers,
+                                         mats, lens, device=dev)
+                else:
+                    judged = _frame_judge_core(
+                        torch.from_numpy(centers).to(dev),
+                        torch.from_numpy(mats).to(dev),
+                        torch.from_numpy(lens).to(dev))
+                Ms, stats, rules = (t.cpu().numpy() for t in judged)
                 for bi, (i, _c, _r) in enumerate(sub):
                     if not (_homogeneity_ok(*(int(x) for x in stats[bi]))
                             and rules[bi]):
@@ -372,6 +385,7 @@ def cross_class_filter(
     records: Sequence[LTRRecord],
     cfg: PipelineConfig,
     gindex: Optional[GenomeIndex] = None,
+    mesh=None,
 ) -> Tuple[List[LTRRecord], Dict[str, List[np.ndarray]]]:
     """FiLTR's TIR/Helitron/SINE cross-class filters (`LTR_filter.py:175-200`):
     an intact-LTR record whose LEFT TERMINAL is itself a structurally
@@ -380,7 +394,8 @@ def cross_class_filter(
     module's library (the reference's `confident_*_from_ltr.fa`).
 
     Every terminal's copies come from ONE genome-wide join and ONE batched
-    family analysis; each class judge re-reads those analyses.  Returns
+    family analysis (its family axis sharded over `mesh` when given);
+    each class judge re-reads those analyses.  Returns
     (kept records, {"tir"|"helitron"|"non_ltr": [terminal codes]})."""
     from hite_tpu_torch.ops.terminal import find_terminal_repeat
     from hite_tpu_torch.pipeline.boundary_adjust import (
@@ -407,7 +422,8 @@ def cross_class_filter(
             min_coverage=0.9, max_copies=cfg.msa.max_copies)
         all_batch = [((int(term_iv[i, 0]), int(term_iv[i, 1])), copies)
                      for i, copies in enumerate(all_copy_sets)]
-        all_analyses = analyze_families_batched(genome, all_batch, cfg.msa)
+        all_analyses = analyze_families_batched(genome, all_batch, cfg.msa,
+                                                mesh=mesh)
 
     def rejudge(idxs: List[int], judge, min_copies: int) -> List[int]:
         """Terminals whose full-length copy frames pass the class judge

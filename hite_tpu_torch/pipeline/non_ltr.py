@@ -161,13 +161,14 @@ def run_non_ltr_detection(
     gated: Optional[np.ndarray] = None,
     plan=None,
     rep_copy_sets=None,
+    mesh=None,
 ) -> ModuleResult:
     if gated is None:
         gated = gate_non_ltr(genome, coarse_intervals, cfg)
     result = verify_families(
         genome, gated, cfg, make_nonltr_judge(cfg),
         min_copies=cfg.msa.min_copy_tir, stage="non_ltr", gindex=gindex,
-        plan=plan, rep_copy_sets=rep_copy_sets)
+        plan=plan, rep_copy_sets=rep_copy_sets, mesh=mesh)
     # label SINE vs LINE by final length
     if len(result.accepted):
         lens = result.accepted.lengths

@@ -24,8 +24,11 @@ under a `Checkpointer` snapshot:
 (`python -m hite_tpu_torch --genome g.fa --out_dir o ...`): it runs on the
 card, and raises without one unless the caller passes `device="cpu"`.
 A genome whose host arrays are packed (`Genome.pack_host`, automatic past
-512 Mbp) stays packed through the run.  The JAX `mesh` argument is ROADMAP
-item 16.5.
+512 Mbp) stays packed through the run.  `run_pipeline(..., mesh=...)`
+(a `parallel.mesh.Mesh`) shards the coarse self-join's chunks, the family
+analyses, the LTR frame judge and the copy finders built on it, as the
+JAX package's `mesh` does; the outputs are the unsharded run's.  The
+low-copy rescue, the library stage and the CLI take no mesh, as there.
 """
 
 from __future__ import annotations
@@ -215,12 +218,13 @@ def CandidateSetJoin(a: CandidateSet, extra_intervals: np.ndarray
 
 
 def modules_stage(genome: Genome, coarse: np.ndarray, cfg: PipelineConfig,
-                  gindex: GenomeIndex) -> Dict[str, ModuleResult]:
+                  gindex: GenomeIndex, mesh=None) -> Dict[str, ModuleResult]:
     """Gate all three copy-verified modules first (tir, helitron,
     non_ltr), then fetch EVERY module's family representatives in ONE
     whole-genome join (the reference pays one full minimap2 pass per
-    module), then verify each module.  The body of the JAX `run_pipeline`
-    closure `_modules_stage`."""
+    module), then verify each module; `mesh` goes to the shared join's
+    finder and the modules' family analyses.  The body of the JAX
+    `run_pipeline` closure `_modules_stage`."""
     want = (lambda t: cfg.te_type in ("all", t))
     gates = {}
     if want("tir"):
@@ -237,7 +241,7 @@ def modules_stage(genome: Genome, coarse: np.ndarray, cfg: PipelineConfig,
     per_mod: Dict[str, list] = {k: [] for k in plans}
     if union:
         with stage_timer("modules.copies"):
-            sets = CopyFinder(gindex).find_copies(
+            sets = CopyFinder(gindex, mesh=mesh).find_copies(
                 [plans[k].seqs[i] for k, i in union],
                 min_coverage=0.9, max_copies=cfg.msa.max_copies)
         for (k, _i), cs in zip(union, sets):
@@ -247,7 +251,8 @@ def modules_stage(genome: Genome, coarse: np.ndarray, cfg: PipelineConfig,
                "helitron": run_helitron_detection,
                "non_ltr": run_non_ltr_detection}
     return {k: runners[k](genome, coarse, cfg, gindex, gated=g,
-                          plan=plans.get(k), rep_copy_sets=per_mod.get(k))
+                          plan=plans.get(k), rep_copy_sets=per_mod.get(k),
+                          mesh=mesh)
             for k, g in gates.items()}
 
 
@@ -263,15 +268,16 @@ def mask_found(genome: Genome, found_intervals: Sequence[np.ndarray]
 
 def ltr_stage(genome: Genome, cfg: PipelineConfig, gindex: GenomeIndex,
               found_intervals: Sequence[np.ndarray],
-              seg_len: int = 131_072) -> LTRResult:
+              seg_len: int = 131_072, mesh=None) -> LTRResult:
     """Stage 3 on the genome masked with `found_intervals` (`mask_found`;
     `run_pipeline` masks before its checkpoint and passes none).  FiLTR
     path: self-join candidates, SW terminal refinement, the precision
     pre-filters, the frame rule with the LTR CNN (`cfg.ltr.use_deep_cnn`)
     and the cross-class filters.  Legacy path (`cfg.ltr.use_filtr=False`,
     `--use_FiLTR 0`): `ltr_legacy.run_legacy_ltr_detection`.  Both end with
-    the superfamily CNN (`cfg.classify.use_neural`).  The body of the JAX
-    `run_pipeline` closure `_ltr_stage`."""
+    the superfamily CNN (`cfg.classify.use_neural`).  `mesh` shards the
+    FiLTR frame judge and the cross-class family analyses.  The body of
+    the JAX `run_pipeline` closure `_ltr_stage`."""
     from hite_tpu_torch.models import bundled_model_path
     from hite_tpu_torch.models.convert import load_model
     from hite_tpu_torch.models.ltr_filter import LTRFilterCNN
@@ -298,8 +304,9 @@ def ltr_stage(genome: Genome, cfg: PipelineConfig, gindex: GenomeIndex,
             if path and os.path.exists(path):
                 cnn_model = load_model(LTRFilterCNN, path, genome.device)
         kept = deep_filter_records(genome, res.records, cfg, gindex,
-                                   cnn_model=cnn_model)
-        kept, pools = cross_class_filter(genome, kept, cfg, gindex)
+                                   cnn_model=cnn_model, mesh=mesh)
+        kept, pools = cross_class_filter(genome, kept, cfg, gindex,
+                                         mesh=mesh)
         res = LTRResult(records=kept, cross_class=pools)
     if cfg.classify.use_neural and res.records:
         with stage_timer("ltr.classify"):
@@ -342,9 +349,12 @@ def run_pipeline(
     cfg: PipelineConfig,
     out_dir: Optional[str] = None,
     coarse_params: Optional[CoarseParams] = None,
+    mesh=None,
 ) -> RunResult:
     """Full single-genome pipeline on `genome.device` (stages in the module
-    doc).  Writes the output files under `out_dir` when given."""
+    doc).  Writes the output files under `out_dir` when given.  With
+    `mesh` (`parallel.mesh.Mesh`), discovery, the modules, the LTR stage
+    and annotation shard their batch axes over it (identical results)."""
     cfg = cfg.with_genome_size(genome.size)
     params = coarse_params or CoarseParams()
     want = (lambda t: cfg.te_type in ("all", t))
@@ -391,7 +401,8 @@ def run_pipeline(
     # stage 1b: coarse de-novo discovery on the masked genome
     with stage_timer("pipeline.coarse"):
         coarse = ckpt.run("coarse",
-                          lambda: coarse_discover(genome, cfg.align, params))
+                          lambda: coarse_discover(genome, cfg.align, params,
+                                                  mesh=mesh))
 
     with stage_timer("pipeline.gindex"):
         gindex = GenomeIndex(genome, cfg.align, seg_len=params.seg_len)
@@ -399,7 +410,7 @@ def run_pipeline(
     # stage 2: the three copy-verified modules over one shared join
     with stage_timer("pipeline.modules"):
         modules = ckpt.run("modules", lambda: modules_stage(
-            genome, coarse, cfg, gindex))
+            genome, coarse, cfg, gindex, mesh=mesh))
     tir = modules.get("tir")
     helitron = modules.get("helitron")
     non_ltr = modules.get("non_ltr")
@@ -419,7 +430,7 @@ def run_pipeline(
         mask_found(genome, found_intervals)
         with stage_timer("pipeline.ltr"):
             ltr = ckpt.run("ltr", lambda: ltr_stage(
-                genome, cfg, gindex, (), seg_len=params.seg_len))
+                genome, cfg, gindex, (), seg_len=params.seg_len, mesh=mesh))
 
     # stage 4: library assembly
     with stage_timer("pipeline.library"):
@@ -438,7 +449,8 @@ def run_pipeline(
     # writes the empty gff/out/tbl set, like RepeatMasker)
     if cfg.annotate:
         with stage_timer("pipeline.annotate"):
-            hits = (annotate_genome(genome, libs["merged"], cfg, gindex)
+            hits = (annotate_genome(genome, libs["merged"], cfg, gindex,
+                                    mesh=mesh)
                     if libs.get("merged") else [])
             if out_dir:
                 write_annotation(os.path.join(out_dir, "genome"), hits,

@@ -289,6 +289,7 @@ def run_tir_detection(
     gated: Optional[np.ndarray] = None,
     plan=None,
     rep_copy_sets=None,
+    mesh=None,
 ) -> ModuleResult:
     """Full TIR module: gate -> cluster -> iterate boundary adjustment."""
     if gated is None:
@@ -296,4 +297,4 @@ def run_tir_detection(
     return verify_families(
         genome, gated, cfg, make_tir_judge(cfg.plant),
         min_copies=cfg.msa.min_copy_tir, stage="tir", gindex=gindex,
-        plan=plan, rep_copy_sets=rep_copy_sets)
+        plan=plan, rep_copy_sets=rep_copy_sets, mesh=mesh)

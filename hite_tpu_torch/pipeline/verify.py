@@ -170,11 +170,14 @@ def verify_families(
     min_coverage: float = 0.9,
     plan: Optional[VerifyPlan] = None,
     rep_copy_sets: Optional[List[List[CopyHit]]] = None,
+    mesh=None,
 ) -> ModuleResult:
     """Run the shared verification pipeline on gated candidate intervals.
 
     `plan` + `rep_copy_sets` inject phase-1 results whose representative
-    copies were fetched in a shared multi-module join (see VerifyPlan)."""
+    copies were fetched in a shared multi-module join (see VerifyPlan).
+    With `mesh` (`parallel.mesh.Mesh`), the batched family analyses shard
+    their family axis over the mesh (bit-identical results)."""
     if len(gated) == 0:
         return empty_result()
     gindex = gindex or GenomeIndex(genome, cfg.align)
@@ -411,7 +414,8 @@ def verify_families(
             count(f"{stage}.ba_analyze_items", len(batch))
             with stage_timer(f"{stage}.ba_analyze"):
                 analyses = analyze_families_batched(
-                    genome, [(it[1], it[2]) for it in batch], cfg.msa)
+                    genome, [(it[1], it[2]) for it in batch], cfg.msa,
+                    mesh=mesh)
             for (g, interval, copies, rnd), pre in zip(batch, analyses):
                 st = family_state[g]
                 result = adjust_candidate(genome, interval, copies, cfg.msa,

@@ -46,7 +46,10 @@ MODULES = [
     "hite_tpu_torch.ops.pack2", "hite_tpu_torch.scripts.scale_run",
     "hite_tpu_torch.models.train", "hite_tpu_torch.models.synthetic",
     "hite_tpu_torch.models.weak_labels", "hite_tpu_torch.models.pretrain",
-    "hite_tpu_torch.scripts.ltr_seeds",
+    "hite_tpu_torch.scripts.ltr_seeds", "hite_tpu_torch.parallel.mesh",
+    "hite_tpu_torch.parallel.dispatch",
+    "hite_tpu_torch.scripts.dryrun_multichip",
+    "hite_tpu_torch.scripts.mesh_scaling",
 ]
 
 
