@@ -5,7 +5,8 @@ Phases, each printing its own lines:
   2. build: every CUDA kernel and the host libraries, from the
      sources in this checkout, all compilers at once; registers and spills
      of each SW instantiation (ptxas) and the SASS instructions of its
-     step loop per cell (cuobjdump), the nucleotide ones against PERF.md's;
+     step loop per cell (cuobjdump), the nucleotide ones equal to PERF.md's
+     (NUCLEOTIDE_RECORDED) or the run fails;
      and the native FASTA reader against the Python reader on the 8 Mbp
      substrate written as a real assembly's FASTA (two contigs, CRLF,
      wrapped lines, soft-masking, IUPAC codes);
@@ -16,9 +17,24 @@ Phases, each printing its own lines:
      device time, and CUDA events a call), plain ms, and the bound from the
      recurrence's int32 operations; each R (rows a lane) at those shapes
      against the plan's pick;
-  4. the kernel's protein mode (BLOSUM62 from a table in shared memory)
-     against the plain version, the same way, at the domain confirm's
-     widths 64-2048 and at X-heavy, all-X, invalid-code and band borders;
+  4. the kernel's protein mode (BLOSUM62 through an int8 query profile in
+     shared memory, each alignment's extents only, R 4 or 8) against the
+     plain version, the same way, at the domain confirm's widths 64-2048
+     and at X-heavy, all-X, invalid-code and band borders, at extent
+     borders (extent 0 on either side, extents that differ, the best on
+     the extents' border, mixed extents, zero ties) and thin-band borders
+     (R 4 at B 4-32), all-X rows and empty widths in every R; the bound
+     over the real cells and over the padded ones, the real/padded share;
+     each R at the confirm's shapes and at a real library's batch sizes
+     against the plan's pick; then the domain library: the library stage's scan
+     (DomainScanner.from_fastas([TIRPeps, HelitronPeps]).scan(...,
+     max_hits_per_cand=48)) on cuda over 1,024 TE-like entries of 1.5-12
+     kbp, three of four carrying a bundled protein back-translated with
+     5-25% of its residues substituted (counts zeroed just before, read
+     just after): launches, shapes, real/padded share, the scan's wall and
+     the kernel's share of it (profiler device time of the same scan run
+     again), every launch bit-exact on its own inputs, the first 32
+     entries' hits equal on the CPU;
   5. on the 8 Mbp clean bench substrate (seed 7) on cuda, with the launch
      counts zeroed just before each path and read just after: the TIR
      discovery path (te_type "tir", cold), which must accept the 3 planted
@@ -108,8 +124,10 @@ Phases, each printing its own lines:
      11/11; TP/FP/FN beside the JAX package's record), and the coarse
      "pairs" and the segments copy mapper, cuda against the CPU, on the
      240 kbp modules genome;
- 15. the kernel line (launches of the main, pan, scale, training and
-     mesh paths), the card line, and the result line (last).
+ 15. the kernel line (launches of the main, pan, scale, training, mesh
+     and domain library paths; sw_protein's bound over the real cells,
+     its padded bound and real/padded share beside it), the
+     card line, and the result line (last).
 
 Exits non-zero, printing no result, without a GPU or outside a checkout.
 Detailed numbers go to smoke_out/chip_smoke.json, the runs' output files
@@ -149,7 +167,7 @@ PEAK_INSTR_S = 132 * 4 * 32 * 1.98e9
 # select), the three candidates 3 (adds), h = max(0, ...) 3, the first
 # argmax 3 (compares), the carried start, matches and length 4 x 3 selects
 # + 2 adds, and the running best 1 compare + 7 selects.  In protein mode
-# a table lookup (address, load) takes the place of the compare and
+# a score lookup (address, load) takes the place of the compare and
 # select, so the count is the same
 SW_OPS_PER_CELL = 2 + 3 + 3 + 3 + 14 + 8
 
@@ -196,6 +214,11 @@ PROTEIN = dict(mismatch=-4, gap=8, invalid_code=AA_X)
 PROTEIN_SHAPES = [("dom_w64", 4, 64), ("dom_w256", 8, 256),
                   ("dom_w512", 32, 512), ("dom_w1024", 4, 1024),
                   ("dom_w2048", 16, 2048)]
+# the R sweep of protein mode: the confirm's shapes above, then the batch
+# sizes a real library's domain scan sends (PERF.md, the domain library)
+PROTEIN_SWEEP = [(B, L, L) for _, B, L in PROTEIN_SHAPES] + [
+    (128, 512, 512), (256, 1024, 1024), (256, 2048, 2048), (64, 4096, 4096),
+    (1024, 256, 256)]
 # (label, B, La, Lb, X fraction, R, planted best cell or None); X-heavy
 # inputs carry an all-X row and rows that differ only in invalid codes
 PROTEIN_BORDERS = [
@@ -207,6 +230,71 @@ PROTEIN_BORDERS = [
     ("R8_banded_best_on_band_row", 6, 700, 600, 0.0, 8, (256, 600)),
     ("R4_banded_best_on_band_row", 4, 300, 250, 0.0, 4, (128, 200)),
 ]
+
+
+# row kinds of `padded_protein`: what each row of a batch carries past (or
+# instead of) its amino acids
+ROW_KINDS = ("trailing_x", "a_empty", "b_empty", "x_inside", "no_x",
+             "best_on_border", "zero_tie", "other_invalid")
+# (label, B, La, Lb, R or None = the plan's, row kinds): borders of protein
+# mode's extents and thin bands, each bit-exact on all 7 outputs
+PROTEIN_EXTENT_BORDERS = [
+    ("extent0_a", 32, 256, 256, None, ("a_empty", "trailing_x")),
+    ("extent0_b_banded", 8, 700, 500, None, ("b_empty", "no_x")),
+    ("extents_differ_banded", 16, 700, 500, None, ("trailing_x",
+                                                   "x_inside")),
+    ("best_on_extent_border", 24, 512, 400, None, ("best_on_border",)),
+    ("best_on_extent_border_R8", 6, 700, 600, 8, ("best_on_border",)),
+    ("mixed_extents", 64, 1024, 1024, None, ROW_KINDS),
+    ("mixed_extents_one_band_R8", 45, 37, 53, 8, ROW_KINDS),
+    ("plan_one_band_B4", 4, 64, 64, None, ROW_KINDS),
+    ("R4_ragged_groups", 13, 37, 29, 4, ROW_KINDS),
+    ("thin_R4_banded_B4", 4, 512, 512, 4, ROW_KINDS),
+    ("thin_R4_banded_B32", 32, 1000, 700, 4, ROW_KINDS),
+    ("thin_R4_banded_B16", 16, 600, 600, 4, ROW_KINDS),
+    ("thin_plan_B8", 8, 300, 300, None, ROW_KINDS),
+]
+
+
+def padded_protein(rng, B, La, Lb, kinds=ROW_KINDS):
+    """uint8 amino-acid rows padded as the domain confirm pads them: a
+    shared, 10%-substituted core, then X (20) past a random extent,
+    cycling through `kinds` row by row (mixed extents in one batch): an a
+    or b side with extent 0, X inside the row, no padding, the best cell
+    on the extent's last row and column, a one-residue region whose every
+    cell ties at zero, and trailing invalid codes other than X."""
+    a = rng.integers(0, 20, (B, La)).astype(np.uint8)
+    b = rng.integers(0, 20, (B, Lb)).astype(np.uint8)
+    for r in range(B):
+        kind = kinds[r % len(kinds)]
+        ea = int(rng.integers(1, La + 1))
+        eb = int(rng.integers(1, Lb + 1))
+        n = int(rng.integers(0, min(ea, eb) + 1))
+        if kind == "best_on_border":
+            a[r, ea - n : ea] = b[r, eb - n : eb] = rng.integers(5, 10, n)
+        elif n:
+            qa = int(rng.integers(0, ea - n + 1))
+            qb = int(rng.integers(0, eb - n + 1))
+            core = a[r, qa : qa + n].copy()
+            sub = rng.random(n) < 0.1
+            core[sub] = rng.integers(0, 20, int(sub.sum()))
+            b[r, qb : qb + n] = core
+        if kind == "zero_tie":
+            ea = eb = 1
+            a[r, 0], b[r, 0] = 17, 7          # W against G: -2
+        if kind == "x_inside":
+            a[r, rng.integers(0, ea, max(1, ea // 4))] = AA_X
+            b[r, rng.integers(0, eb, max(1, eb // 4))] = AA_X
+            a[r, ea - 1] = b[r, eb - 1] = 3   # the extent stays
+        fill = rng.integers(21, 26) if kind == "other_invalid" else AA_X
+        if kind != "no_x":
+            a[r, ea:] = fill
+            b[r, eb:] = fill
+        if kind == "a_empty":
+            a[r] = AA_X
+        if kind == "b_empty":
+            b[r] = fill
+    return a, b
 
 
 def card_line() -> str:
@@ -406,13 +494,34 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def sw_bound_ms(B, La, Lb, ops_per_cell, ops_per_s):
+def sw_bound_ms(B, La, Lb, ops_per_cell, ops_per_s, cells=None):
     """Least time for the work: each input byte read once and 7 int32
-    outputs written once, or ops_per_cell ops per DP cell at ops_per_s."""
+    outputs written once, or ops_per_cell ops per DP cell at ops_per_s,
+    over `cells` (default all B * La * Lb)."""
     t_bytes = (B * (La + Lb) + 7 * 4 * B) / PEAK_BYTES_S
-    t_ops = ops_per_cell * B * La * Lb / ops_per_s
+    t_ops = ops_per_cell * (B * La * Lb if cells is None else cells) \
+        / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def protein_bounds(a, b):
+    """Protein mode's cells and bounds of one launch: the real cells (each
+    alignment's La_r x Lb_r region, the least work of the function), their
+    share of the padded cells, and the bound at SW_OPS_PER_CELL over the
+    real cells (`bound_ms`) and over the padded cells (`bound_padded_ms`,
+    as the table-lookup design's records kept it)."""
+    B, La = a.shape
+    Lb = b.shape[1]
+    la, lb = terminal.sw_extents(a, b, invalid_code=AA_X,
+                                 mismatch=PROTEIN["mismatch"],
+                                 gap=PROTEIN["gap"])
+    real = int((la * lb).sum())
+    bound, by = sw_bound_ms(B, La, Lb, SW_OPS_PER_CELL, PEAK_INT32_S,
+                            cells=real)
+    padded, _ = sw_bound_ms(B, La, Lb, SW_OPS_PER_CELL, PEAK_INT32_S)
+    return dict(real_cells=real, real_share=real / max(B * La * Lb, 1),
+                bound_ms=bound, bound_by=by, bound_padded_ms=padded)
 
 
 def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None,
@@ -420,7 +529,7 @@ def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None,
     """Kernel vs plain on the same inputs: bit-exact on all 7 outputs."""
     B, La = a.shape
     Lb = b.shape[1]
-    plan = terminal.sw_plan(La, Lb, R=R, packed=packed)
+    plan = terminal.sw_plan(La, Lb, R=R, packed=packed, protein=protein)
     got = sw(a, b, R, packed, protein)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -434,13 +543,23 @@ def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None,
                if not torch.equal(g, r)]
         raise AssertionError(f"sw kernel != plain at {label} ({plan}): "
                              f"fields {bad}")
-    if best_at:
+    if best_at == "extent":
+        la, lb = terminal.sw_extents(a, b, invalid_code=AA_X,
+                                     mismatch=PROTEIN["mismatch"],
+                                     gap=PROTEIN["gap"])
+        on = int(((ref.qe == la) & (ref.se == lb) & (la > 0)).sum())
+        assert on >= 1, f"{label}: no best cell on its extents' border"
+        label = f"{label} ({on}/{B} bests on the extents' border)"
+    elif best_at:
         on = int(((ref.qe == best_at[0]) & (ref.se == best_at[1])).sum())
         assert on >= 1, f"{label}: no best cell at {best_at}"
         label = f"{label} ({on}/{B} bests at {best_at})"
     dev_ms, ms = sw_device_ms(a, b, reps, R, packed, protein)
     kernel_ms = dev_ms or ms
     bound, by = sw_bound_ms(B, La, Lb, SW_OPS_PER_CELL, PEAK_INT32_S)
+    cells = protein_bounds(a, b) if protein else {}
+    if protein:
+        bound, by = cells["bound_ms"], cells["bound_by"]
     # diagnostic, not a bound of the function: the kernel's own step-loop
     # instructions at the card's issue rate
     per_cell = sass.get((plan.R, plan.packed, plan.nb > 1, protein))
@@ -451,15 +570,41 @@ def check_sw(label, a, b, reps, sass, R=None, packed=None, best_at=None,
                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                sass_per_cell=per_cell, sass_instr_ms=issue,
                cells_per_s=B * La * Lb / (kernel_ms * 1e-3))
+    row.update(cells)
+    extra = (f"real/padded cells {cells['real_share']:.4f}, bound over "
+             f"the padded cells {cells['bound_padded_ms']:.5f} ms "
+             f"({kernel_ms / cells['bound_padded_ms']:.1f}x), both at "
+             f"{SW_OPS_PER_CELL} ops a cell  ") if protein else ""
     print(f"{'sw_protein' if protein else 'sw'} {label}: B={B} {La}x{Lb} "
           f"R={plan.R} G={plan.G} "
           f"bands={plan.nb} {'packed' if plan.packed else 'unpacked'}: "
           f"kernel {kernel_ms:.4f} ms ({'device' if dev_ms else 'events'}"
           f"; {ms:.4f} ms a call by events)  plain {plain_ms:.1f} ms  "
-          f"bound {bound:.5f} ms ({by}; {kernel_ms / bound:.1f}x)  "
+          f"bound {bound:.5f} ms ({by}; {kernel_ms / bound:.1f}x)  {extra}"
           f"step-loop SASS at the instruction rate {issue} ms  "
-          f"{row['cells_per_s'] / 1e9:.2f} Gcell/s  exact")
+          f"{row['cells_per_s'] / 1e9:.2f} padded Gcell/s  exact")
     return row
+
+
+def sw_kernel_device_ms(fn):
+    """(summed device ms, count) of the SW kernel launches `fn` makes, from
+    torch.profiler kernel durations; (None, 0) if the profiler saw none."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    # the profiler now and then hands back no kernel record late in a long
+    # process: profile again before giving up
+    for _attempt in range(3):
+        with torch.profiler.profile(activities=acts,
+                                    acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "sw_kernel" in e.key]
+        count = sum(e.count for e in ev)
+        if count:
+            return sum(e.self_device_time_total for e in ev) / 1e3, count
+    return None, 0
 
 
 def sw_device_ms(a, b, n, R=None, packed=None, protein=False):
@@ -469,24 +614,9 @@ def sw_device_ms(a, b, n, R=None, packed=None, protein=False):
     when launches are short)."""
     sw(a, b, R, packed, protein)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    # the profiler now and then hands back no kernel record late in a long
-    # process: profile again before falling back to events
-    for _attempt in range(3):
-        with torch.profiler.profile(activities=acts,
-                                    acc_events=True) as prof:
-            for _ in range(n):
-                sw(a, b, R, packed, protein)
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "sw_kernel" in e.key]
-        dev_us = sum(e.self_device_time_total for e in ev)
-        count = sum(e.count for e in ev)
-        if count:
-            break
-    return (dev_us / count / 1e3 if count else None), cuda_ms(
+    dev_ms, count = sw_kernel_device_ms(
+        lambda: [sw(a, b, R, packed, protein) for _ in range(n)])
+    return (dev_ms / count if count else None), cuda_ms(
         lambda: sw(a, b, R, packed, protein), n)
 
 
@@ -954,6 +1084,66 @@ def rescue_scenario(device):
             mod.low_copy.intervals.tolist())
 
 
+def codons_by_residue():
+    """uint8 [20, 6, 3] codons of each amino acid (no stop codon), from
+    the port's codon table, and int [20] how many each has."""
+    from hite_tpu_torch.ops.protein import CODON_TABLE
+
+    codons = np.zeros((AA_X, 6, 3), np.uint8)
+    count = np.zeros(AA_X, np.int64)
+    for idx, aa in enumerate(CODON_TABLE.tolist()):
+        if aa < AA_X:
+            codons[aa, count[aa]] = (idx // 16, idx // 4 % 4, idx % 4)
+            count[aa] += 1
+    return codons, count
+
+
+def domain_library(seed=11, n=1024, n_short=32):
+    """A TE library of a plant genome's order, from `seed`: n entries of
+    1.5-12 kbp of random flank (the first n_short of 1.5-3 kbp); three of
+    every four carry one protein of the bundled TIRPeps.lib /
+    HelitronPeps.lib (one that fits with 100 bp on each side), 5-25% of
+    its residues substituted, back-translated with a drawn codon a
+    residue (no stop codon), on either strand; every fourth carries none.
+    Returns (entries, [(protein name or None, strand)])."""
+    from hite_tpu_torch.io.fasta import revcomp
+    from hite_tpu_torch.pipeline.domain import read_protein_fasta
+    from hite_tpu_torch.pipeline.run import DATA_DIR
+
+    prots = {}
+    for fn in ("TIRPeps.lib", "HelitronPeps.lib"):
+        prots.update(read_protein_fasta(os.path.join(DATA_DIR, "protein",
+                                                     fn)))
+    names = list(prots)
+    plen = np.array([len(prots[k]) for k in names])
+    codons, count = codons_by_residue()
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([rng.integers(1500, 3001, n_short),
+                           rng.integers(1500, 12_001, n - n_short)])
+    entries, carried = [], []
+    for i, L in enumerate(lens.tolist()):
+        seq = rng.integers(0, 4, L).astype(np.uint8)
+        if i % 4 == 3:
+            entries.append(seq)
+            carried.append((None, 0))
+            continue
+        k = int(rng.choice(np.nonzero(3 * plen + 200 <= L)[0]))
+        p = prots[names[k]].astype(np.int64)
+        p[p >= AA_X] = 0                      # X as alanine
+        sub = rng.random(len(p)) < rng.uniform(0.05, 0.25)
+        p[sub] = (p[sub] + rng.integers(1, AA_X, int(sub.sum()))) % AA_X
+        pick = (rng.random(len(p)) * count[p]).astype(np.int64)
+        nt = codons[p, pick].reshape(-1)
+        strand = int(rng.integers(0, 2))
+        if strand:
+            nt = revcomp(nt)
+        off = int(rng.integers(100, L - len(nt) - 100 + 1))
+        seq[off : off + len(nt)] = nt
+        entries.append(seq)
+        carried.append((names[k], strand))
+    return entries, carried
+
+
 # the CNNs' logits, cuda against the CPU, within the tolerances the tests
 # hold them to against flax (both sides bf16 arithmetic, rounded at
 # different points): decisions must be equal
@@ -1221,7 +1411,7 @@ def check_recorded(calls, sass, label):
         assert all(i[2].keys() == kw.keys() for i in items)
         sub = kw.pop("submatrix")
         if protein:
-            sub = torch.from_numpy(terminal._table_array(sub)).to("cuda")
+            sub = torch.from_numpy(terminal._table_array(sub)).cuda()
         a = torch.cat([i[0] for i in items])
         b = torch.cat([i[1] for i in items])
         got = [torch.cat([i[3][f] for i in items]) for f in range(7)]
@@ -1244,13 +1434,26 @@ def check_recorded(calls, sass, label):
             row = dict(B=B, La=La, Lb=Lb, launches=len(its), max_abs_err=err,
                        ms=dev_ms or ms, device_ms=dev_ms, call_ms=ms,
                        plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            extra = ""
+            if protein:
+                # bounds a launch: the mean over this group's launches
+                each = [protein_bounds(i[0], i[1]) for i in its]
+                row.update(each[0], **{k: sum(e[k] for e in each) / len(each)
+                                       for k in ("bound_ms",
+                                                 "bound_padded_ms")})
+                row["real_share"] = sum(e["real_cells"] for e in each) / (
+                    len(its) * B * La * Lb)
+                extra = (f"  real/padded cells {row['real_share']:.4f}, "
+                         "bound over the padded cells "
+                         f"{row['bound_padded_ms']:.5f} ms")
             rows["sw_protein" if protein else "sw"].append(row)
             print(f"{'sw_protein' if protein else 'sw'} {label} B={B} "
                   f"{La}x{Lb}: {len(its)} launches bit-exact on their own "
                   f"inputs; kernel {row['ms']:.4f} ms "
                   f"({'device' if dev_ms else 'events'})  plain "
                   f"{plain_ms:.1f} ms (one call, {len(a)} rows)  bound "
-                  f"{bound:.5f} ms ({by}; {row['ms'] / bound:.1f}x)")
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}; "
+                  f"{row['ms'] / row['bound_ms']:.1f}x){extra}")
     return rows
 
 
@@ -2156,6 +2359,144 @@ def check_train(sass, main_dir) -> dict:
     return report
 
 
+def protein_phase(sass) -> dict:
+    """Protein mode (BLOSUM62 through the int8 query profile, each
+    alignment's extents) against the plain version:
+    the domain confirm's shapes (and the nucleotide mode at each, the
+    table's cost), the X and band borders, the extents and thin-band
+    borders, all-X rows and empty widths in every R; then each R at the
+    confirm's shapes against the plan's pick."""
+    prot_rows = []
+    for i, (label, B, L) in enumerate(PROTEIN_SHAPES):
+        a, b = protein_inputs(B, L, L, 0.0, seed=400 + i)
+        row = check_sw(label, a, b, 20, sass, protein=True)
+        # the nucleotide mode at the same shape and its own plan
+        a, b = sw_inputs(B, L, L, 0.0, seed=400 + i)
+        dev_ms, ms = sw_device_ms(a, b, 20)
+        row["nucleotide_ms"] = dev_ms or ms
+        print(f"sw_protein {label}: nucleotide mode at the same shape "
+              f"{row['nucleotide_ms']:.4f} ms; protein / nucleotide "
+              f"{row['ms'] / row['nucleotide_ms']:.3f}")
+        prot_rows.append(row)
+    borders = []
+    for i, (label, B, La, Lb, xf, R, at) in enumerate(PROTEIN_BORDERS):
+        a, b = protein_inputs(B, La, Lb, xf, seed=500 + i, best_at=at)
+        borders.append(check_sw(label, a, b, 10, sass, R=R, best_at=at,
+                                protein=True))
+    dev = torch.device("cuda")
+    for i, (label, B, La, Lb, R, kinds) in enumerate(PROTEIN_EXTENT_BORDERS):
+        a, b = padded_protein(np.random.default_rng(600 + i), B, La, Lb,
+                              kinds)
+        a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        borders.append(check_sw(
+            label, a, b, 10, sass, R=R, protein=True,
+            best_at="extent" if kinds == ("best_on_border",) else None))
+    x = torch.full((4, 64), AA_X, dtype=torch.uint8, device=dev)
+    e = torch.empty((3, 0), dtype=torch.uint8, device=dev)
+    sub = torch.from_numpy(BLOSUM62).to(dev)
+    for R in terminal.SW_ROWS:
+        zero = [int(f[0]) for f in sw(x, x.clone(), R, protein=True)]
+        assert zero == [0, 1, 1, 1, 1, 0, 0], (R, zero)
+        for p, q in ((e, x[:3]), (x[:3], e)):
+            ref = terminal.batched_local_align(p, q, submatrix=sub,
+                                               **PROTEIN)
+            got = terminal._sw_cuda(p, q, match=2, R=R, submatrix=BLOSUM62,
+                                    **PROTEIN)
+            assert all(torch.equal(g, r) for g, r in zip(got, ref)), \
+                f"protein R={R}: empty width {tuple(p.shape)}"
+    variants = {(r["plan"]["R"], r["plan"]["nb"] > 1)
+                for r in prot_rows + borders}
+    assert variants == {(R, bd) for R in terminal.SW_ROWS
+                        for bd in (False, True)}, variants
+    print("kernels: sw_protein (cuda, hite_tpu_torch/csrc/sw.cu, protein "
+          f"mode) bit-exact at {len(prot_rows)} shapes and {len(borders)} "
+          "border shapes, R 4 and 8, one band and banded, all-X rows "
+          "and empty widths")
+
+    # rows a lane: each R at the confirm's shapes, against the plan's pick
+    sweep = {}
+    for i, (B, La, Lb) in enumerate(PROTEIN_SWEEP):
+        a, b = protein_inputs(B, La, Lb, 0.0, seed=700 + i)
+        reps = 10 if La * Lb * B < 1 << 28 else 3
+        t = {}
+        for R in terminal.SW_ROWS:
+            dev_ms, ms = sw_device_ms(a, b, reps, R, protein=True)
+            t[R] = dev_ms or ms
+        pick = terminal.sw_plan(La, Lb, protein=True).R
+        share = protein_bounds(a, b)["real_share"]
+        sweep[f"{B}x{La}x{Lb}"] = dict(ms=t, plan_R=pick, real_share=share)
+        print(f"sw_protein sweep B={B} {La}x{Lb} (real/padded {share:.3f}): "
+              + "  ".join(f"R={R} {v:.4f} ms" for R, v in t.items())
+              + f"  (plan picks R={pick}, {t[pick] / min(t.values()):.3f} x "
+              "the fastest)")
+    return dict(shapes=prot_rows, borders=borders, sweep=sweep)
+
+
+def domain_library_phase(sass, n=1024, n_cpu=32) -> dict:
+    """The library stage's domain scan at a real library's size:
+    `refine_labels`' own call, DomainScanner.from_fastas([TIRPeps,
+    HelitronPeps]).scan(entries, max_hits_per_cand=48), on cuda over
+    `domain_library`'s n entries, the counts zeroed just before and read
+    just after; every sw_protein launch held bit-exact against the plain
+    version on its own inputs; the kernel's device time from the
+    profiler's kernel durations over the same scan run again; the first
+    n_cpu entries (1.5-3 kbp) scanned on the CPU as well, every DomainHit
+    field equal."""
+    from hite_tpu_torch.pipeline.domain import DomainScanner
+    from hite_tpu_torch.pipeline.run import DATA_DIR
+
+    entries, carried = domain_library(n=n, n_short=n_cpu)
+    paths = [os.path.join(DATA_DIR, "protein", f)
+             for f in ("TIRPeps.lib", "HelitronPeps.lib")]
+    scanner = DomainScanner.from_fastas(paths, device="cuda")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RecordSW() as rec:
+        hits = scanner.scan(entries, max_hits_per_cand=48)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    shapes = {str(k): v for k, v in
+              kernels.LAUNCH_SHAPES["sw_protein"].items()}
+    assert launches["sw_protein"] > 0, "the domain scan never launched"
+    kernel_ms, n_prof = sw_kernel_device_ms(
+        lambda: scanner.scan(entries, max_hits_per_cand=48))
+    kernel_s = None if kernel_ms is None else kernel_ms / 1e3
+    share = ("not measured (the profiler saw no kernel)" if kernel_s is None
+             else f"{kernel_s:.4f} s = {100 * kernel_s / wall:.1f}% of the "
+             f"wall ({n_prof} kernels profiled)")
+    real = sum(protein_bounds(a, b)["real_cells"]
+               for a, b, _kw, _o in rec.calls)
+    padded = sum(a.shape[0] * a.shape[1] * b.shape[1]
+                 for a, b, _kw, _o in rec.calls)
+    with_hits = sum(bool(h) for h in hits)
+    found = sum(any(h.entry.split("|", 1)[1] == name for h in hs)
+                for hs, (name, _s) in zip(hits, carried) if name)
+    print(f"domain library: {n} entries ({sum(map(len, entries))} bp), "
+          f"{sum(c[0] is not None for c in carried)} carry a protein; "
+          f"scan wall {wall:.3f} s, sw_protein {launches['sw_protein']} "
+          f"launches at {shapes}, kernel device time {share}; "
+          f"real/padded cells "
+          f"{real / padded:.4f} ({real} of {padded}); {with_hits} entries "
+          f"with hits, {found} carry a hit on their own protein")
+    rows = check_recorded(rec.calls, sass, "domain library")
+    t0 = time.perf_counter()
+    cpu = DomainScanner.from_fastas(paths, device="cpu").scan(
+        entries[:n_cpu], max_hits_per_cand=48)
+    cpu_s = time.perf_counter() - t0
+    assert [[vars(h) for h in hs] for hs in cpu] == \
+        [[vars(h) for h in hs] for hs in hits[:n_cpu]], \
+        "domain library: cuda and CPU hits differ on the short entries"
+    print(f"domain library: the first {n_cpu} entries on the CPU "
+          f"({cpu_s:.1f} s): every DomainHit equal to cuda's "
+          f"({sum(map(len, cpu))} hits)")
+    return dict(entries=n, bp=sum(map(len, entries)), wall_s=wall,
+                kernel_s=kernel_s, launches=launches, shapes=shapes,
+                real_cells=real, padded_cells=padded, with_hits=with_hits,
+                own_protein_found=found, cpu_s=cpu_s, sw_rows=rows)
+
+
 class Laps:
     """Prints, and keeps in the report, each phase's seconds since the
     previous mark (the script's time budget by phase)."""
@@ -2173,6 +2514,7 @@ class Laps:
 
 
 def main() -> int:
+    """The whole smoke run."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
@@ -2213,6 +2555,8 @@ def main() -> int:
                      f"differ from PERF.md's: {changed}"))
     report["nucleotide_vs_recorded"] = {str(k): v
                                         for k, v in changed.items()}
+    assert not changed and set(nuc) == set(NUCLEOTIDE_RECORDED), \
+        "the nucleotide instantiations' SASS changed"
 
     lap("build")
     # ---- SW kernel vs plain, listed shapes, borders and forced variants
@@ -2266,41 +2610,14 @@ def main() -> int:
     report["sw_sweep"] = sweep
 
     lap("sw kernel checks and R sweep")
-    # ---- protein mode (BLOSUM62 from the 32 x 32 shared-memory table)
-    # against the plain version: the domain confirm's shapes and borders
-    prot_rows = []
-    for i, (label, B, L) in enumerate(PROTEIN_SHAPES):
-        a, b = protein_inputs(B, L, L, 0.0, seed=400 + i)
-        row = check_sw(label, a, b, 20, sass, protein=True)
-        # the table's cost: the nucleotide mode at the same shape and plan
-        a, b = sw_inputs(B, L, L, 0.0, seed=400 + i)
-        dev_ms, ms = sw_device_ms(a, b, 20)
-        row["nucleotide_ms"] = dev_ms or ms
-        print(f"sw_protein {label}: nucleotide mode at the same shape "
-              f"{row['nucleotide_ms']:.4f} ms; protein / nucleotide "
-              f"{row['ms'] / row['nucleotide_ms']:.3f}")
-        prot_rows.append(row)
-    prot_borders = []
-    for i, (label, B, La, Lb, xf, R, at) in enumerate(PROTEIN_BORDERS):
-        a, b = protein_inputs(B, La, Lb, xf, seed=500 + i, best_at=at)
-        prot_borders.append(check_sw(label, a, b, 10, sass, R=R,
-                                     best_at=at, protein=True))
-    a = torch.full((4, 64), AA_X, dtype=torch.uint8, device="cuda")
-    for R in terminal.SW_ROWS:
-        zero = [int(f[0]) for f in sw(a, a.clone(), R, protein=True)]
-        assert zero == [0, 1, 1, 1, 1, 0, 0], zero
-    variants = {(r["plan"]["R"], r["plan"]["nb"] > 1)
-                for r in prot_rows + prot_borders}
-    assert variants == {(R, bd) for R in terminal.SW_ROWS
-                        for bd in (False, True)}, variants
-    report["sw_protein_shapes"] = prot_rows
-    report["sw_protein_borders"] = prot_borders
-    print("kernels: sw_protein (cuda, hite_tpu_torch/csrc/sw.cu, protein "
-          f"mode) bit-exact at {len(prot_rows)} shapes and "
-          f"{len(prot_borders)} border shapes, R 4 and 8, one band and "
-          "banded")
-
-    lap("sw_protein checks")
+    # ---- protein mode against the plain version, its R sweep, and the
+    # domain scan of a real library's size
+    prot = protein_phase(sass)
+    report["sw_protein"] = prot
+    lap("sw_protein checks and R sweep")
+    dlib = domain_library_phase(sass)
+    report["domain_library"] = dlib
+    lap("domain library")
     # ---- the TIR path at 8 Mbp on cuda (cold: the first path run)
     length = 8_000_000
     bg, truth, seqs = build_bench_genome(length)
@@ -2591,18 +2908,19 @@ def main() -> int:
             ("sw", "hite_tpu/ops/terminal_pallas.py:47",
              rows + borders + rescore_rows),
             ("sw_protein", "hite_tpu/ops/terminal.py:157",
-             prot_rows + prot_borders)):
+             prot["shapes"] + prot["borders"])):
         mr = (main_rows[kname] + pan["sw_rows"][kname]
               + scale["sw_rows"][kname] + train["sw_rows"][kname]
-              + mesh["sw_rows"][kname])
+              + mesh["sw_rows"][kname] + dlib["sw_rows"][kname])
         tot = sum(r["launches"] for r in mr)
         wavg = lambda key: sum(r[key] * r["launches"] for r in mr) / tot
         by_path = {"main": launches[kname],
                    "pan": pan["launches"][kname],
                    "scale": scale["launches"][kname],
                    "train": train["launches"][kname],
-                   "mesh": mesh["launches"][kname]}
-        entries.append({
+                   "mesh": mesh["launches"][kname],
+                   "domain_library": dlib["launches"][kname]}
+        entry = {
             "name": kname, "route": "cuda",
             "source": "hite_tpu_torch/csrc/sw.cu", "replaces": replaces,
             "launches": sum(by_path.values()),
@@ -2611,7 +2929,13 @@ def main() -> int:
             "ms": wavg("ms"), "plain_ms": wavg("plain_ms"),
             "bound_ms": wavg("bound_ms"),
             "bound_by": max(mr, key=lambda r: r["launches"])["bound_by"],
-            "library_ms": None})
+            "library_ms": None}
+        if kname == "sw_protein":
+            # bound_ms over each alignment's real cells, the bound over the
+            # padded cells beside it, both at SW_OPS_PER_CELL
+            entry.update(bound_padded_ms=wavg("bound_padded_ms"),
+                         real_cell_share=wavg("real_share"))
+        entries.append(entry)
     kline = {"kernels": entries}
     report["kernel_line"] = kline
     os.makedirs("smoke_out", exist_ok=True)

@@ -17,17 +17,44 @@
 // Output int32 out[7][B] = score (>= 0), qs = si, qe = row, ss = sj,
 // se = column, matches, alen.  Any La, Lb and B.
 //
-// Protein mode (TAB) replaces the nucleotide substitution, and nothing
-// else, with a table: sub = table[x][y] where both codes are valid, else
-// mismatch (the plain version's `submatrix` mode, which the domain engine
-// calls with BLOSUM62, mismatch -4, gap 8, invalid code 20 = X).  The host
-// passes a 32 x 32 int32 table (ops/terminal.py:sw_table: the caller's
-// entries for codes below the invalid code, mismatch everywhere else)
-// that each block loads into shared memory once; an invalid a code is
-// recoded to 30 and an invalid b code to 31, so an invalid pair reads a
-// mismatch entry and `im = x == y` stays the match test.  Instantiated for
-// packed fields only (R 4 and 8, one band and banded).
-//
+// Protein mode (TAB) replaces the nucleotide substitution with a table:
+// sub = table[x][y] where both codes are valid, else mismatch (the plain
+// version's `submatrix` mode, which the domain engine calls with
+// BLOSUM62, mismatch -4, gap 8, invalid code 20 = X).  The host passes a
+// 32 x 32 int32 table (ops/terminal.py:sw_table: the caller's entries for
+// codes below the invalid code, mismatch everywhere else, every entry an
+// int8); an invalid a code is recoded to 30 and an invalid b code to 31,
+// so an invalid pair reads a mismatch entry and `im = x == y` stays the
+// match test.  Instantiated for packed fields only, R 4 and 8, one band
+// and banded.  Two things differ from the nucleotide mode:
+//   * Extents.  The domain confirm pads every row of a batch with X to
+//     the batch's largest power of two, and adds all-X rows.  Each group
+//     finds its alignment's extents on the device (La_r, Lb_r: the index
+//     after the last code below the invalid code in a and in b; 0 when
+//     there is none) and computes only the La_r x Lb_r region.  Only a
+//     trailing run of invalid codes is cut.  This is exact when
+//     mismatch < 0 and gap > 0 (otherwise the extents are the full
+//     widths): a cell in a cut row or column has an invalid code on its
+//     row or column, so it scores max(0, pred - c) with c > 0 for each
+//     predecessor; by induction every cut cell scores
+//     0 or strictly less than the region's best M.  So no cut cell can be
+//     the best (when M = 0 the best is cell (1, 1), which is in the
+//     region), and the region's cells depend only on cells above and to
+//     the left of them, none of which is cut.  An empty region (La_r or
+//     Lb_r 0 with La, Lb > 0) returns what the plain version returns for
+//     an all-invalid row: score 0 at cell (1, 1), a fresh start there,
+//     no matches, length 0.  A warp steps to the last column of its
+//     groups' last active lanes; a band past its alignment's La_r takes
+//     its ticket, does nothing, and reports a "no cell" best (it is never
+//     waited on: the band below it is past La_r too).
+//   * A query profile in shared memory in place of a table lookup a cell.
+//     Each lane writes, once, the R int8 scores of its R rows against
+//     each b code 0-31 into its own slot (R bytes a code: lane g's word
+//     of code c is c * 32 + g words, or two words at R = 8), so a
+//     step reads all R scores of its column's b code in one
+//     bank-conflict-free load (two halves for R = 8) whatever b code each
+//     lane holds; a lane reads only its own slots, so no barrier.
+
 // Design.  The unit of work is a GROUP of G lanes of one warp that owns a
 // band of G * R DP rows of one alignment, R consecutive rows per lane
 // whose previous-column cells live in registers.  Lane g works on column
@@ -101,16 +128,49 @@ constexpr int TAB_W = 32;      // protein table row width (codes 0-31)
 constexpr int TAB_INV_A = 30;  // an invalid a code in protein mode
 constexpr int TAB_INV_B = 31;  // an invalid b code in protein mode
 
-// The substitution term of one cell: a code x against a b code y, both
-// recoded so that an invalid code equals nothing; in protein mode (TAB)
-// the table entry, which is `mismatch` wherever a code is invalid.
-template <bool TAB>
+// Protein profile words a warp: TAB_W codes x 32 lanes x a slot of R
+// int8 scores
+template <int R>
+constexpr int PROF_WORDS = TAB_W * 32 * R / 4;
+
+// The nucleotide substitution term of one cell: a code x against a b
+// code y, both recoded so that an invalid code equals nothing.
 __device__ __forceinline__ int sub_score(int x, int y, int match,
-                                         int mismatch, const int* tab,
-                                         int& im) {
+                                         int mismatch, int& im) {
   im = x == y;
-  if (TAB) return tab[x * TAB_W + y];
   return im ? match : mismatch;
+}
+
+__device__ __forceinline__ int sbyte(unsigned w, int k) {
+  return (int)(signed char)(w >> (8 * k));
+}
+
+// The extent of a row of n codes (the index after its last code below
+// `inv`, 0 when there is none), found by the G lanes of group `grp` from
+// the row's end backwards, G codes a round; every lane of the warp takes
+// part in every round.
+__device__ __forceinline__ int row_extent(const uint8_t* row, int n, int inv,
+                                          bool live, int g, int G, int grp) {
+  const unsigned bits =
+      (G == 32 ? FULL : ((1u << G) - 1) << (grp * G));
+  int end = live ? n : 0;  // codes at [0, end) not yet ruled out
+  int ext = 0;
+  bool done = end <= 0;
+  while (__any_sync(FULL, !done)) {
+    const int p = end - G + g;
+    const bool v = !done && p >= 0 && row[p] < inv;
+    const unsigned m = __ballot_sync(FULL, v) & bits;
+    if (!done) {
+      if (m) {
+        ext = end - G + (31 - __clz(m)) - grp * G + 1;
+        done = true;
+      } else {
+        end -= G;
+        done = end <= 0;
+      }
+    }
+  }
+  return ext;
 }
 
 template <typename W>
@@ -136,12 +196,7 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
           int* __restrict__ ho_h, W* __restrict__ bests,
           const int* __restrict__ table) {
   constexpr int S = 4 * sizeof(W);  // bits per packed half
-  __shared__ int s_tab[TAB ? TAB_W * TAB_W : 1];
-  if (TAB) {  // before any warp leaves: every thread reaches the barrier
-    for (int t = threadIdx.x; t < TAB_W * TAB_W; t += WARPS * 32)
-      s_tab[t] = table[t];
-    __syncthreads();
-  }
+  __shared__ __align__(16) unsigned s_prof[TAB ? WARPS * PROF_WORDS<R> : 1];
   constexpr W LOW = (W(1) << S) - 1;
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
@@ -175,6 +230,16 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   nrows = nrows < 0 ? 0 : (nrows > R ? R : nrows);
   const uint8_t* arow = a + (size_t)(live ? aln : 0) * La;
   const uint8_t* brow = b + (size_t)(live ? aln : 0) * Lb;
+  // the region computed: La_r x Lb_r (protein mode, when the cut is
+  // exact), else La x Lb
+  int La_r = La, Lb_r = Lb;
+  if (TAB && mismatch < 0 && gap > 0) {
+    La_r = row_extent(arow, La, inv, live, g, G, grp);
+    Lb_r = row_extent(brow, Lb, inv, live && La_r > 0, g, G, grp);
+    if (La_r == 0 || Lb_r == 0) La_r = Lb_r = 0;
+    nrows = live ? La_r - top + 1 : 0;
+    nrows = nrows < 0 ? 0 : (nrows > R ? R : nrows);
+  }
 
   int aq[R];
   Cell<W> col[R];  // cells of the previous column
@@ -184,14 +249,35 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     aq[q] = x < inv ? x : (TAB ? TAB_INV_A : 0x100);
     col[q] = {0, (W)(top + q) << S, 0};  // column 0: fresh (i, 0)
   }
+  // protein mode: this lane's profile slots, code c's scores at word
+  // c * 32 + lane (R = 4) or words 2 (c * 32 + lane) + {0, 1} (R = 8)
+  unsigned* const prof = s_prof + (TAB ? wib * PROF_WORDS<R> : 0);
+  if (TAB) {
+#pragma unroll 4
+    for (int c = 0; c < TAB_W; ++c) {
+      unsigned w[R / 4] = {};
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        w[q / 4] |= (unsigned)(table[aq[q] * TAB_W + c] & 0xff)
+                    << (8 * (q % 4));
+      if constexpr (R == 8) {
+        prof[2 * (c * 32 + lane)] = w[0];
+        prof[2 * (c * 32 + lane) + 1] = w[1];
+      } else {
+        prof[c * 32 + lane] = w[0];
+      }
+    }
+  }
   Cell<W> above_prev = {0, (W)(top - 1) << S, 0};  // cell (top - 1, 0)
   Cell<W> out_cell = {0, 0, 0};  // the lane's last row, last column
   int bh = NEG;
   W bkey = 0, bst = 0, bml = 0;
 
   // band hand-off (nb > 1; G == 32, one group per warp)
-  const bool produce = BANDED && live && band < nb - 1;
-  const bool consume = BANDED && live && band > 0;
+  // (protein mode: only bands with rows; a band past La_r waits on none)
+  const int nb_r = TAB ? (La_r + 32 * R - 1) / (32 * R) : nb;
+  const bool produce = BANDED && live && band < nb_r - 1;
+  const bool consume = BANDED && live && band > 0 && (!TAB || band < nb_r);
   // this band's hand-off row (column j at j - 1) and the band above's
   const size_t my_row = ((size_t)aln * (nb - 1) + band) * Lb;
   const size_t up_row = my_row - Lb;
@@ -202,10 +288,10 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   int pre_h = 0;
   W pre_st = 0, pre_ml = 0;
   auto fetch = [&](int c) {  // wait for chunk c of band - 1, load it
-    const int need = min((c + 1) * CHUNK, Lb);
+    const int need = min((c + 1) * CHUNK, Lb_r);
     while (ld_acquire(prog + band - 1) < need) __nanosleep(32);
     const int j = c * CHUNK + lane + 1;
-    if (j <= Lb) {
+    if (j <= Lb_r) {
       pre_h = __ldcg(ho_h + up_row + j - 1);
       pre_st = __ldcg(ho_st + up_row + j - 1);
       pre_ml = __ldcg(ho_ml + up_row + j - 1);
@@ -217,28 +303,41 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   // from its last lane, which sends row 0 or the band above
   const int src = g > 0 ? lane - 1 : lane + G - 1;
   const bool last = g == G - 1;
-  const int steps = Lb + G - 1;
+  // protein mode: to the last column of the last lane with rows
+  const int steps =
+      TAB ? __reduce_max_sync(FULL, nrows > 0 ? Lb_r + g : 0) : Lb + G - 1;
   // b code of the lane's column, loaded one step ahead at a clamped index
   int bnext = Lb > 0 ? (int)brow[0] : inv;
   for (int s = 0; s < steps; ++s) {
     const int j = s - g + 1;
-    const bool on = j >= 1 && j <= Lb && nrows > 0;
+    const bool on = j >= 1 && j <= Lb_r && nrows > 0;
     const int bc = bnext < inv ? bnext : (TAB ? TAB_INV_B : 0x200);
     if (Lb > 0) bnext = brow[min(max(j, 0), Lb - 1)];
     Cell<W> hand = {0, (W)(s + 1), 0};  // row 0: fresh (0, s + 1)
     if (consume) {  // warp-uniform
       const int k = s & (2 * CHUNK - 1);
-      if (s < Lb && (s & (CHUNK - 1)) == 0) {
+      if (s < Lb_r && (s & (CHUNK - 1)) == 0) {
         s_h[wib][k + lane] = pre_h;
         s_st[wib][k + lane] = pre_st;
         s_ml[wib][k + lane] = pre_ml;
         __syncwarp();
       }
-      if (s + AHEAD < Lb && ((s + AHEAD) & (CHUNK - 1)) == 0)
+      if (s + AHEAD < Lb_r && ((s + AHEAD) & (CHUNK - 1)) == 0)
         fetch((s + AHEAD) / CHUNK);
       hand = {s_h[wib][k], s_st[wib][k], s_ml[wib][k]};  // past Lb: unused
     }
     const Cell<W> above = shfl_cell(last ? hand : out_cell, src);
+    // protein mode: the R scores of this column's b code, one load
+    unsigned pw0 = 0, pw1 = 0;
+    if (TAB && on) {
+      if constexpr (R == 8) {
+        const uint2 w2 = reinterpret_cast<const uint2*>(prof)[bc * 32 + lane];
+        pw0 = w2.x;
+        pw1 = w2.y;
+      } else {
+        pw0 = prof[bc * 32 + lane];
+      }
+    }
     if (on) {
       Cell<W> diag = above_prev;
       Cell<W> up = above;
@@ -251,8 +350,14 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
       for (int q = 0; q < R; ++q) {
         const Cell<W> left = col[q];
         int im;
-        const int cd =
-            diag.h + sub_score<TAB>(aq[q], bc, match, mismatch, s_tab, im);
+        int sub;
+        if (TAB) {
+          im = aq[q] == bc;
+          sub = sbyte(q < 4 ? pw0 : pw1, q % 4);
+        } else {
+          sub = sub_score(aq[q], bc, match, mismatch, im);
+        }
+        const int cd = diag.h + sub;
         // max(0, cd, left - gap, up - gap)
         const int h = __viaddmax_s32_relu(up.h, -gap, max(cd, left.h - gap));
         const W key = ((W)(top + q) << S) | jw;
@@ -280,7 +385,7 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         __stcg(out_h + j - 1, up.h);
         __stcg(out_st + j - 1, up.st);
         __stcg(out_ml + j - 1, up.ml);
-        if (j % CHUNK == 0 || j == Lb) st_release(prog + band, j);
+        if (j % CHUNK == 0 || j == Lb_r) st_release(prog + band, j);
       }
     }
   }
@@ -321,6 +426,12 @@ sw_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         bml = __ldcg(all + 4 * k + 3);
       }
     }
+  }
+  if (TAB && bh == NEG && La > 0 && Lb > 0) {
+    // an empty region: the plain version's all-invalid answer, score 0
+    // at cell (1, 1) with a fresh start there
+    bkey = bst = ((W)1 << S) | 1;
+    bml = 0;
   }
   const int si = (int)(bst >> S), sj = (int)(bst & LOW);
   const int i = (int)(bkey >> S), j = (int)(bkey & LOW);
@@ -420,10 +531,11 @@ extern "C" long long sw_sync_ints(int B, int nb) {
 
 // Launch on `stream` with the plan (R rows a lane, G lanes a group, nb
 // bands, packed 16-bit fields or not) that ops/terminal.py:sw_plan chose;
-// `table` (32 x 32 int32 on the device, or null) selects protein mode.
-// Returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
-// a plan that does not cover the shape, or a table with unpacked fields
-// or an invalid code past the table's codes.
+// `table` (32 x 32 int32 on the device, or null) selects protein mode,
+// which computes only each alignment's extents when mismatch < 0 and
+// gap > 0.  Returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a plan that does not cover the shape, or a
+// table with unpacked fields or an invalid code past the table's codes.
 extern "C" int sw_launch(const void* a, const void* b, int B, int La, int Lb,
                          int match, int mismatch, int gap, int invalid_code,
                          int R, int G, int nb, int packed, void* out,

@@ -10,7 +10,7 @@ pure-Python reader (`read_fasta_py`, the oracle) otherwise.
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -58,8 +58,12 @@ def read_fasta(path: str) -> Dict[str, np.ndarray]:
 
 def read_fasta_py(path: str) -> Dict[str, np.ndarray]:
     """The pure-Python reader (line by line, trailing whitespace
-    stripped, blank lines skipped)."""
-    seqs: Dict[str, np.ndarray] = {}
+    stripped, blank lines skipped): `iter_fasta` collected."""
+    return dict(iter_fasta(path))
+
+
+def iter_fasta(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """Stream (name, codes) pairs without holding the whole file."""
     name = None
     parts: List[bytes] = []
     with open(path, "rb") as fh:
@@ -69,14 +73,18 @@ def read_fasta_py(path: str) -> Dict[str, np.ndarray]:
                 continue
             if line.startswith(b">"):
                 if name is not None:
-                    seqs[name] = encode_seq(b"".join(parts))
+                    yield name, encode_seq(b"".join(parts))
                 name = line[1:].split()[0].decode("ascii")
                 parts = []
             else:
                 parts.append(line)
         if name is not None:
-            seqs[name] = encode_seq(b"".join(parts))
-    return seqs
+            yield name, encode_seq(b"".join(parts))
+
+
+def read_fasta_str(path: str) -> Dict[str, str]:
+    """Read a FASTA file into {name: ASCII string} (for small libraries)."""
+    return {k: decode_seq(v) for k, v in read_fasta(path).items()}
 
 
 def write_fasta(path: str, seqs: Dict[str, np.ndarray | str],

@@ -16,10 +16,16 @@ that row's batch shard with the loss weighted by the shard's share of
 the batch, sums the gradients, hands each slice its part and steps AdamW
 on the slices (elementwise, so slicing changes nothing).  The summation
 order of the gradients is the only difference from the unsharded step.
+
+Both steps run cuDNN's deterministic algorithms: the JAX package's steps
+are reproducible, and cuDNN's default convolution gradients sum in an
+order that changes from run to run, so two retrainings from one seed on
+the card would give different checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -71,6 +77,18 @@ def create_state(model: nn.Module, seed: int = 0, lr: float = 1e-3,
     return model, adamw(model, lr)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block, the caller's
+    setting restored after it."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     generator: Optional[torch.Generator] = None
                     ) -> Callable[[Dict], torch.Tensor]:
@@ -88,8 +106,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     def train_step(batch: Dict) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = cross_entropy(model(*batch["inputs"], **kw), batch["labels"])
-        loss.backward()
+        with deterministic_cudnn():
+            loss = cross_entropy(model(*batch["inputs"], **kw),
+                                 batch["labels"])
+            loss.backward()
         optimizer.step()
         count("train.steps")
         return loss.detach()
@@ -153,7 +173,7 @@ class ShardedTrain:
         for r, rep in enumerate(self.replicas):
             if labels[r].shape[0] == 0:
                 continue
-            with device_guard(labels[r].device):
+            with device_guard(labels[r].device), deterministic_cudnn():
                 rep.zero_grad(set_to_none=True)
                 loss = cross_entropy(rep(*(x[r] for x in inputs)),
                                      labels[r]) * (labels[r].shape[0] / n)

@@ -47,6 +47,17 @@ def kmer_codes(codes: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(bad, -1, acc)
 
 
+def pack_2bit(codes: torch.Tensor) -> torch.Tensor:
+    """Pack 16 codes into one int32 (2 bits each, the first code lowest);
+    N packs as 0, so callers track an N mask separately.  The last axis
+    must be a multiple of 16."""
+    c = torch.where(codes >= 4, 0, codes).to(torch.int64)
+    c = c.reshape(codes.shape[:-1] + (-1, 16))
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=codes.device)
+    # the sum fills all 32 bits: wrap it to int32 as the JAX package does
+    return (c << shifts).sum(-1).to(torch.int32)
+
+
 def n_mask(codes: torch.Tensor) -> torch.Tensor:
     """Boolean mask of valid (non-N) positions."""
     return codes < 4

@@ -162,6 +162,21 @@ def selfjoin_scan(s_dbin, s_qpos, s_spos, n_pairs, *, k: int,
                     n_pairs=n_pairs)
 
 
+def selfjoin_hsps(flat: torch.Tensor, *, k: int, window: int = 4,
+                  diag_band: int = 32, run_gap: int = 96,
+                  min_seeds: int = 4, min_hsp_len: int = 30,
+                  max_hsps: int = 16_384, max_seed_pairs: int = 1 << 20,
+                  budget_slices: int = 1) -> JoinHSPs:
+    """All-genome repeat seed HSPs: stage 1 (`selfjoin_sorted`) then
+    stage 2 (`selfjoin_scan`)."""
+    s_dbin, s_qpos, s_spos, n_pairs = selfjoin_sorted(
+        flat, k=k, window=window, diag_band=diag_band)
+    return selfjoin_scan(
+        s_dbin, s_qpos, s_spos, n_pairs, k=k, run_gap=run_gap,
+        min_seeds=min_seeds, min_hsp_len=min_hsp_len, max_hsps=max_hsps,
+        max_seed_pairs=max_seed_pairs, budget_slices=budget_slices)
+
+
 def selfjoin_scan_packed(s_dbin, s_qpos, s_spos, n_pairs, **kw
                          ) -> torch.Tensor:
     """`selfjoin_scan` packed into ONE int32 [6, M] tensor: rows qs, qe,

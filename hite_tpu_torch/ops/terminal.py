@@ -10,7 +10,8 @@ length so identity and length gates need no traceback.
 plain version `batched_local_align` (an anti-diagonal loop over whole
 tensors, the oracle), a CUDA tensor to the hand-written kernel
 `csrc/sw.cu`, or the call raises.  With `submatrix` (protein mode: the
-domain engine's BLOSUM62) the kernel scores from a table in shared memory
+domain engine's BLOSUM62) the kernel scores from an int8 query profile in
+shared memory, computes only each alignment's extents (`sw_extents`),
 and counts its launches as "sw_protein".
 """
 
@@ -214,26 +215,53 @@ def sw_rows(La: int) -> int:
     groups: fewer rows a lane step sooner; the TIR gate's 40 x 40 at
     batches of 16 to 4096), else R = 8, the cheaper cell (the banded
     widths of LTR, to 8192, and annotation, to 4096).  Each is the faster
-    R at those shapes on the H100 (PERF.md)."""
+    R at those shapes on the H100 (PERF.md), and in protein mode at the
+    domain confirm's, B 4-1024 and widths 64-4096."""
     return 4 if La <= 32 * 4 else 8
 
 
 @functools.lru_cache(maxsize=1024)
 def sw_plan(La: int, Lb: int, *, R: Optional[int] = None,
-            packed: Optional[bool] = None) -> SwPlan:
-    """The launch plan of an [*, La] x [*, Lb] batch: R by `sw_rows` unless given, and the packed
-    variant unless a width overflows its 16-bit fields (then the unpacked
-    one, never the plain version)."""
+            packed: Optional[bool] = None, protein: bool = False) -> SwPlan:
+    """The launch plan of an [*, La] x [*, Lb] batch: R by `sw_rows` unless
+    given, and the packed variant unless a width overflows its 16-bit
+    fields (then the unpacked one, never the plain version; protein mode
+    has packed fields only, and raises)."""
     fits = sw_packs(La, Lb)
     if packed is None:
         packed = fits
     elif packed and not fits:
         raise ValueError(f"La={La}, Lb={Lb} overflow the packed fields")
+    if protein and not packed:
+        raise ValueError("protein mode has packed fields only (widths "
+                         f"below 65536), got La={La}, Lb={Lb}, "
+                         f"packed={packed}")
     if R is None:
         R = sw_rows(La)
     elif R not in SW_ROWS:
         raise ValueError(f"R must be one of {SW_ROWS}, got {R}")
     return SwPlan(R, *sw_groups(R, La), packed)
+
+
+def sw_extents(a: torch.Tensor, b: torch.Tensor, *, invalid_code: int,
+               mismatch: int, gap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(La_r, Lb_r) int64 [B]: the region protein mode computes of each
+    alignment, as csrc/sw.cu finds it: the index after the last code below
+    `invalid_code` of a and of b, both 0 when either is (an empty region);
+    the full widths unless mismatch < 0 and gap > 0, where the cut is
+    exact (csrc/sw.cu's header)."""
+    def ext(x):
+        idx = torch.arange(1, x.shape[1] + 1, device=x.device)
+        return torch.where(x < invalid_code, idx, 0).amax(1) \
+            if x.shape[1] else torch.zeros(x.shape[0], dtype=torch.int64,
+                                           device=x.device)
+
+    if not (mismatch < 0 and gap > 0):
+        full = torch.ones(a.shape[0], dtype=torch.int64, device=a.device)
+        return full * a.shape[1], full * b.shape[1]
+    la, lb = ext(a), ext(b)
+    empty = (la == 0) | (lb == 0)
+    return torch.where(empty, 0, la), torch.where(empty, 0, lb)
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,6 +282,7 @@ def _sw_lib() -> ctypes.CDLL:
 
 SW_TABLE_WIDTH = 32   # codes of the kernel's protein table (csrc/sw.cu)
 SW_TABLE_INV = 30     # the largest invalid code a table launch takes
+SW_PROFILE_RANGE = (-128, 127)   # the kernel's int8 query profile
 
 
 def _table_array(submatrix) -> np.ndarray:
@@ -266,7 +295,8 @@ def sw_table(submatrix, mismatch: int, invalid_code: int) -> np.ndarray:
     clamped to its shape, as the plain version indexes it) for codes x, y
     below `invalid_code`, `mismatch` everywhere else, so the kernel's
     recoded invalid codes (30 for a, 31 for b) score a mismatch.  Raises
-    for a table wider than 32 codes."""
+    for a table wider than 32 codes, or one whose entries or mismatch do
+    not fit the kernel's int8 profile."""
     sub = _table_array(submatrix)
     if sub.ndim != 2 or max(sub.shape) > SW_TABLE_WIDTH:
         raise ValueError(f"the SW kernel takes a table of at most "
@@ -280,6 +310,13 @@ def sw_table(submatrix, mismatch: int, invalid_code: int) -> np.ndarray:
     tab[:invalid_code, :invalid_code] = sub[
         np.minimum(codes, sub.shape[0] - 1)[:, None],
         np.minimum(codes, sub.shape[1] - 1)[None, :]]
+    lo, hi = SW_PROFILE_RANGE
+    used = sub[:invalid_code, :invalid_code]
+    if not lo <= mismatch <= hi or used.size and not (
+            lo <= used.min() and used.max() <= hi):
+        raise ValueError(f"the SW kernel's int8 profile holds scores in "
+                         f"{lo}..{hi}; the table or mismatch {mismatch} "
+                         "does not fit")
     return tab
 
 
@@ -309,18 +346,14 @@ def _sw_cuda(a: torch.Tensor, b: torch.Tensor, *, match: int,
     B, La = a.shape
     Lb = b.shape[1]
     dev = a.device
-    table = None
-    if submatrix is not None:
-        if packed is False or not sw_packs(La, Lb):
-            raise ValueError("protein mode has packed fields only (widths "
-                             f"below 65536), got La={La}, Lb={Lb}, "
-                             f"packed={packed}")
-        table = _device_table(submatrix, mismatch, invalid_code, dev)
+    protein = submatrix is not None
+    plan = sw_plan(La, Lb, R=R, packed=packed, protein=protein)
+    table = (_device_table(submatrix, mismatch, invalid_code, dev)
+             if protein else None)
     out = torch.empty((7, B), dtype=torch.int32, device=dev)
     if B == 0:
         return LocalAlign(*out.unbind(0))
     lib = _sw_lib()
-    plan = sw_plan(La, Lb, R=R, packed=packed)
     sync = scratch = None
     if plan.nb > 1:
         sync = torch.zeros(lib.sw_sync_ints(B, plan.nb), dtype=torch.int32,
@@ -357,8 +390,8 @@ def batched_local_align_auto(
     """SW: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors; anything else raises.  Any La, Lb and B (the JAX package fell
     back to XLA past La = 16000; the kernel has no limit), below 65536 in
-    protein mode (`submatrix`, a table of at most 32 x 32 codes: wider
-    raises on every device)."""
+    protein mode (`submatrix`, a table of at most 32 x 32 codes whose
+    entries fit an int8: any other raises on every device)."""
     _check_inputs(a, b)
     kw = dict(match=match, mismatch=mismatch, gap=gap,
               invalid_code=invalid_code)
@@ -431,3 +464,7 @@ def find_terminal_repeat(
     return TerminalRepeat(found=found, left_start=al.qs, left_end=al.qe,
                           right_start=r_start, right_end=r_end,
                           identity=identity, length=length)
+
+
+# the JAX package's name for its traced core; PyTorch needs no split
+find_terminal_repeat_core = find_terminal_repeat

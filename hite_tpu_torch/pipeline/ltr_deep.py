@@ -110,6 +110,17 @@ def _rule_core(M: torch.Tensor) -> torch.Tensor:
     return left.found & right.found
 
 
+def rule_judge_frame(M: np.ndarray, device=None) -> bool:
+    """True when flank homology breaks at both boundaries of one frame
+    matrix [R, 2W] (`judge_ltr_from_both_ends_frame` ->
+    `judge_both_ends_frame`, src/Util.py:10477/10696): a real LTR's copies
+    come from different loci, so columns OUTSIDE the element must not be
+    homologous, while columns inside are.  `_rule_core` on `device` (None
+    = the card)."""
+    dev = resolve_device(device)
+    return bool(_rule_core(torch.from_numpy(np.asarray(M)).to(dev)))
+
+
 def _flank_homo_core(M: torch.Tensor) -> torch.Tensor:
     """Flank-homogeneity statistics int32 [..., 5] of [..., R, 2W] frames:
     (rows, left-homo rows, right-homo rows, joined-homo rows, joined
@@ -175,6 +186,15 @@ def _homogeneity_ok(n: int, lh: int, rh: int, jh: int, jr: int) -> bool:
         return False
     thr = 0.8 if n < 20 else 0.9
     return lh / n < thr and rh / n < thr and jh < jr
+
+
+def flank_homogeneity_ok(M: np.ndarray, device=None) -> bool:
+    """FiLTR's flank-homogeneity cluster filters on one frame matrix
+    [R, 2W]: `_homogeneity_ok` of its `_flank_homo_core` counts, on
+    `device` (None = the card)."""
+    dev = resolve_device(device)
+    stats = _flank_homo_core(torch.from_numpy(np.asarray(M)).to(dev))
+    return _homogeneity_ok(*(int(x) for x in stats.cpu()))
 
 
 def single_copy_gate(

@@ -49,7 +49,7 @@ MODULES = [
     "hite_tpu_torch.scripts.ltr_seeds", "hite_tpu_torch.parallel.mesh",
     "hite_tpu_torch.parallel.dispatch",
     "hite_tpu_torch.scripts.dryrun_multichip",
-    "hite_tpu_torch.scripts.mesh_scaling",
+    "hite_tpu_torch.scripts.mesh_scaling", "hite_tpu_torch.scripts.sw_compare",
 ]
 
 
@@ -85,6 +85,57 @@ def test_no_jax_or_hite_tpu_import(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib", "hite_tpu"), \
                 f"{path}: imports {n}"
+
+
+JAX_PKG = os.path.join(ROOT, "hite_tpu")
+# JAX modules and functions with no port counterpart, each for a reason:
+# the Pallas kernel became csrc/sw.cu, and the rest is JAX's own compile
+# machinery (jit caches, the compile cache, compile-time listeners)
+NO_COUNTERPART = {
+    "ops/terminal_pallas.py": "the Pallas SW kernel, ported as csrc/sw.cu",
+    "utils/jitcache.py": "JAX's ahead-of-time compile cache",
+    "models/trainer.py:jit_apply": "a cache of jax.jit-compiled applies",
+    "utils/log.py:install_compile_listener": "JAX's compile-time events",
+}
+
+
+def _jax_modules():
+    out = []
+    for d, _, files in os.walk(JAX_PKG):
+        out += [os.path.relpath(os.path.join(d, f), JAX_PKG)
+                for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _top_level(path, defs_only):
+    names = set()
+    for node in ast.parse(open(path).read(), path).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif defs_only:
+            continue
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {a.asname or a.name for a in node.names}
+    return names
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_public_function_has_a_counterpart(rel):
+    """Each public top-level function or class of a hite_tpu module is
+    defined (or bound) at the top of the port's module of the same path;
+    private `_*` helpers and NO_COUNTERPART are exempt."""
+    if rel in NO_COUNTERPART:
+        return
+    public = {n for n in _top_level(os.path.join(JAX_PKG, rel), True)
+              if not n.startswith("_")
+              and f"{rel}:{n}" not in NO_COUNTERPART}
+    port = os.path.join(PKG, rel)
+    assert os.path.exists(port) or not public, f"no port module for {rel}"
+    if public:
+        missing = public - _top_level(port, False)
+        assert not missing, f"hite_tpu_torch/{rel} lacks {sorted(missing)}"
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -211,6 +262,17 @@ def test_ltr_seeds_raises_without_gpu(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="GPU"):
         main(["--seeds", "0", "0"])
     assert capsys.readouterr().out == ""
+
+
+def test_sw_compare_refuses_without_gpu(monkeypatch, capsys, tmp_path):
+    """The two-checkout kernel comparison runs on the card only: without
+    one it exits non-zero before building anything."""
+    from hite_tpu_torch.scripts.sw_compare import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main([str(tmp_path)]) == 2
+    assert capsys.readouterr().out == ""
+    assert main([]) == 2
 
 
 def test_scale_run_raises_without_gpu(monkeypatch, tmp_path):

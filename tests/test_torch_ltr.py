@@ -260,6 +260,48 @@ def test_flank_homogeneity(case):
     assert jok(M) == _homogeneity_ok(*stats) == want
 
 
+def _rule_case(name):
+    """Frames whose homology breaks at both boundaries, at one, or at
+    none, and a frame with all-N padding rows."""
+    from hite_tpu_torch.pipeline.ltr_deep import FRAME_CORE, FRAME_FLANK
+
+    rng = np.random.default_rng(len(name))
+    W = FRAME_FLANK + FRAME_CORE
+    core = rng.integers(0, 4, 2 * W)
+    M = np.tile(core, (8, 1)).astype(np.uint8)
+    if name in ("both", "padded"):
+        M[:, :FRAME_FLANK] = rng.integers(0, 4, (8, FRAME_FLANK))
+        M[:, -FRAME_FLANK:] = rng.integers(0, 4, (8, FRAME_FLANK))
+    elif name == "left_only":
+        M[:, :FRAME_FLANK] = rng.integers(0, 4, (8, FRAME_FLANK))
+    if name == "padded":
+        M[5:] = 4
+    return M
+
+
+@pytest.mark.parametrize("case", ["both", "left_only", "none", "padded"])
+def test_rule_judge_frame(case):
+    """The one-frame rule verdict against the JAX package's."""
+    from hite_tpu.pipeline.ltr_deep import rule_judge_frame as jrule
+    from hite_tpu_torch.pipeline.ltr_deep import rule_judge_frame
+
+    M = _rule_case(case)
+    want = jrule(M)
+    assert rule_judge_frame(M, device="cpu") is want
+    assert want is (case in ("both", "padded"))
+
+
+@pytest.mark.parametrize("case", ["random", "one_side", "joined", "single"])
+def test_flank_homogeneity_ok(case):
+    """The one-frame flank-homogeneity verdict against the JAX
+    package's."""
+    from hite_tpu.pipeline.ltr_deep import flank_homogeneity_ok as jok
+    from hite_tpu_torch.pipeline.ltr_deep import flank_homogeneity_ok
+
+    M, want = _homogeneity_case(case)
+    assert flank_homogeneity_ok(M, device="cpu") is jok(M) is want
+
+
 # ---- the FiLTR filter scenarios of tests/test_ltr_filters.py
 
 def _rec(cls, s, e, ls, le, rs, re, tsd=0):

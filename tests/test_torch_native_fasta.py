@@ -45,6 +45,21 @@ def test_readers_agree(case, tmp_path):
             assert np.array_equal(seqs[k], ref[k]), (name, k)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_iter_fasta_and_read_fasta_str(case, tmp_path):
+    """The streaming reader yields the JAX package's (name, codes) pairs
+    in order, duplicates and empty records included, and the string
+    reader its {name: ASCII} dict."""
+    path = str(tmp_path / f"{case}.fa")
+    with open(path, "wb") as fh:
+        fh.write(CASES[case])
+    ref = list(jax_fasta.iter_fasta(path))
+    got = list(fasta.iter_fasta(path))
+    assert [n for n, _ in got] == [n for n, _ in ref]
+    assert all(np.array_equal(x, y) for (_, x), (_, y) in zip(got, ref))
+    assert fasta.read_fasta_str(path) == jax_fasta.read_fasta_str(path)
+
+
 def test_io_fasta_takes_the_native_reader(tmp_path):
     path = str(tmp_path / "g.fa")
     rng = np.random.default_rng(3)

@@ -126,6 +126,18 @@ def test_tsd_search(plant):
         eq(getattr(ref, f), getattr(got, f), f)
 
 
+@pytest.mark.parametrize("shape", [(16,), (3, 64), (2, 2, 32)])
+def test_pack_2bit(shape):
+    """16 codes an int32, N as 0, the last code in the two top bits (the
+    sum wraps to a negative int32 in both packages)."""
+    rng = np.random.default_rng(sum(shape))
+    c = rng.integers(0, 6, shape).astype(np.uint8)
+    c[..., 15::16] = 3
+    got = te.pack_2bit(T(c))
+    eq(je.pack_2bit(jnp.asarray(c)), got, "pack_2bit")
+    assert got.dtype == torch.int32 and (got < 0).all()
+
+
 # ---------------------------------------------------------------- selfjoin
 def test_selfjoin_sorted_and_scan():
     g = np.concatenate([repeat_genome(5), np.full(12_768, 4, np.uint8)])
@@ -139,6 +151,20 @@ def test_selfjoin_sorted_and_scan():
                   max_hsps=1024, max_seed_pairs=budget, budget_slices=slices)
         eq(js.selfjoin_scan_packed(*ref, **kw),
            ts.selfjoin_scan_packed(*got, **kw), f"scan K={slices}")
+
+
+@pytest.mark.parametrize("slices,budget", [(1, 1 << 20), (4, 512)])
+def test_selfjoin_hsps(slices, budget):
+    """The stage-1 + stage-2 wrapper, field by field."""
+    g = np.concatenate([repeat_genome(5), np.full(12_768, 4, np.uint8)])
+    kw = dict(k=12, window=4, diag_band=32, run_gap=96, min_seeds=4,
+              min_hsp_len=30, max_hsps=1024, max_seed_pairs=budget,
+              budget_slices=slices)
+    ref = js.selfjoin_hsps(jnp.asarray(g), **kw)
+    got = ts.selfjoin_hsps(T(g), **kw)
+    for f in ref._fields:
+        eq(getattr(ref, f), getattr(got, f), f)
+    assert bool(got.valid.any())
 
 
 # ------------------------------------------------------------------- kmer

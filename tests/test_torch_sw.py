@@ -22,6 +22,10 @@ from hite_tpu_torch.ops.terminal import (
 )
 from test_torch_tir_path import compile_cache  # noqa: F401  (autouse)
 
+# protein rows padded as the domain confirm pads them, the inputs
+# chip_smoke.py holds the kernel to on the card
+from chip_smoke import ROW_KINDS, padded_protein
+
 torch.set_num_threads(2)
 
 
@@ -141,13 +145,46 @@ def _better(x, y):
     return x[0] > y[0] or (x[0] == y[0] and x[1] < y[1])
 
 
+def _row_extent(row, n, G):
+    """csrc/sw.cu's row_extent for one group of G lanes: rounds of G codes
+    from the row's end backwards, the first valid code found ends it."""
+    end = n
+    while end > 0:
+        valid = [p for p in range(max(end - G, 0), end) if row[p]]
+        if valid:
+            return max(valid) + 1
+        end -= G
+    return 0
+
+
+def _profile_slot(table, aq, code):
+    """One lane's profile words of one b code: R int8 scores, byte q of
+    word q // 4 (a slot of R bytes), as csrc/sw.cu packs them."""
+    words = [0] * -(-len(aq) // 4)
+    for q, x in enumerate(aq):
+        words[q // 4] |= (int(table[x, code]) & 0xFF) << (8 * (q % 4))
+    return words
+
+
+def _sbyte(word, k):
+    v = (word >> (8 * k)) & 0xFF
+    return v - 256 if v >= 128 else v
+
+
 def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
                   seed=0, match=2, mismatch=-3, gap=4, inv=4, table=None):
     """Python model of csrc/sw.cu over a batch A[B, La], Bm[B, Lb].
 
     `table` (the 32 x 32 `sw_table` of protein mode) scores a cell from
-    the table, with an invalid a code recoded to 30 and an invalid b code
-    to 31 (otherwise 0x100 and 0x200: an invalid code equals nothing).
+    each lane's int8 query profile (its R rows' table entries for each b
+    code, packed into words and read back with sign extension), with an
+    invalid a code recoded to 30 and an invalid b code to 31 (otherwise
+    0x100 and 0x200: an invalid code equals nothing).  Protein mode with
+    mismatch < 0 and gap > 0 computes only each alignment's extents (each
+    group finds them as the kernel does); a warp steps to the last
+    column of its last lane with rows, a band past La_r neither waits nor
+    is waited on and reports no cell, and an empty region answers the
+    plain version's all-invalid alignment.
 
     Warps of `lanes` lanes in lockstep; groups of G lanes, R rows a lane,
     one band (G * R >= La: lanes // G alignments a warp) or bands of
@@ -165,6 +202,7 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
     n_lanes = -(-max(La, 1) // R)
     G, nb = (n_lanes, 1) if n_lanes <= lanes else (lanes, -(-La // (lanes * R)))
     gpw = lanes // G
+    cut = table is not None and mismatch < 0 and gap > 0
     prog, ho, bests = {}, {}, {}
 
     def warp(units):
@@ -173,37 +211,50 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
             grp, g = divmod(lane, G)
             live = grp < min(gpw, len(units))
             aln, band = units[grp] if live else (0, 0)
+            La_r, Lb_r = La, Lb
+            if cut:
+                La_r = _row_extent(A[aln] < inv, La, G) if live else 0
+                Lb_r = _row_extent(Bm[aln] < inv, Lb, G) if La_r else 0
+                if not (La_r and Lb_r):
+                    La_r = Lb_r = 0
             top = band * G * R + g * R + 1
-            nrows = max(0, min(R, La - top + 1)) if live else 0
+            nrows = max(0, min(R, La_r - top + 1)) if live else 0
             aq = [int(A[aln, top - 1 + q]) if q < nrows else inv
                   for q in range(R)]
+            aq = [x if x < inv else (0x100 if table is None else 30)
+                  for x in aq]
             L.append(dict(
-                grp=grp, g=g, aln=aln, top=top, nrows=nrows,
-                aq=[x if x < inv else (0x100 if table is None else 30)
-                    for x in aq],
+                grp=grp, g=g, aln=aln, top=top, nrows=nrows, aq=aq,
+                La_r=La_r, Lb_r=Lb_r,
+                prof=None if table is None else [
+                    _profile_slot(table, aq, c) for c in range(32)],
                 col=[(0, (top + q) << S, 0) for q in range(R)],
                 above_prev=(0, (top - 1) << S, 0), out=(0, 0, 0),
                 best=(NEG, 0, 0, 0),
                 src=lane - 1 if g > 0 else (lane + G - 1) % lanes))
         aln0, band0 = units[0]
-        consume = nb > 1 and band0 > 0
-        produce = nb > 1 and band0 < nb - 1
+        Lb_r, La_r = L[0]["Lb_r"], L[0]["La_r"]   # one group when banded
+        nb_r = -(-La_r // (lanes * R)) if table is not None else nb
+        consume = nb > 1 and 0 < band0 < nb_r
+        produce = nb > 1 and band0 < nb_r - 1
         stage, pre = [None, None], [None]
 
         def fetch(c):
-            need = min((c + 1) * chunk, Lb)
+            need = min((c + 1) * chunk, Lb_r)
             while prog.get((aln0, band0 - 1), 0) < need:
                 yield "wait"
-            pre[0] = [ho[(aln0, band0 - 1, j)]
-                      for j in range(c * chunk + 1, min((c + 1) * chunk, Lb) + 1)]
+            pre[0] = [ho[(aln0, band0 - 1, j)] for j in
+                      range(c * chunk + 1, min((c + 1) * chunk, Lb_r) + 1)]
 
         if consume:
             yield from fetch(0)
-        for s in range(Lb + G - 1):
+        steps = (max([st["Lb_r"] + st["g"] for st in L if st["nrows"]],
+                     default=0) if table is not None else Lb + G - 1)
+        for s in range(steps):
             if consume:
-                if s < Lb and s % chunk == 0:
+                if s < Lb_r and s % chunk == 0:
                     stage[(s // chunk) & 1] = pre[0]
-                if s + ahead < Lb and (s + ahead) % chunk == 0:
+                if s + ahead < Lb_r and (s + ahead) % chunk == 0:
                     yield from fetch((s + ahead) // chunk)
             sends = []
             for st in L:
@@ -212,23 +263,24 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
                     jn = s + 1
                     if not consume:
                         send = (0, jn, 0)
-                    elif jn <= Lb:
+                    elif jn <= Lb_r:
                         send = stage[(s // chunk) & 1][s % chunk]
                 sends.append(send)
             for st in L:
                 above = sends[st["src"]]
                 j = s - st["g"] + 1
-                if not (1 <= j <= Lb and st["nrows"]):
+                if not (1 <= j <= st["Lb_r"] and st["nrows"]):
                     continue
                 y = int(Bm[st["aln"], j - 1])
                 bc = y if y < inv else (0x200 if table is None else 31)
+                words = None if table is None else st["prof"][bc]
                 diag, up = st["above_prev"], above
                 for q in range(R):   # all R rows; rows past La are junk
                     left = st["col"][q]
                     im = int(st["aq"][q] == bc)
                     cd = diag[0] + (
                         (match if im else mismatch) if table is None
-                        else int(table[st["aq"][q], bc]))
+                        else _sbyte(words[q // 4], q % 4))
                     cu = up[0] - gap
                     h = max(max(up[0], left[0]) - gap, cd, 0)
                     key = ((st["top"] + q) << S) | j
@@ -248,7 +300,7 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
                 st["above_prev"], st["out"] = above, up
                 if produce and st["g"] == G - 1:
                     ho[(aln0, band0, j)] = up
-                    if j % chunk == 0 or j == Lb:
+                    if j % chunk == 0 or j == Lb_r:
                         prog[(aln0, band0)] = j
             yield "step"
         for grp, unit in enumerate(units[:gpw]):
@@ -285,6 +337,9 @@ def _kernel_model(A, Bm, R, *, lanes=32, chunk=32, ahead=8, packed=True,
             if _better(bests[(aln, band)], best):
                 best = bests[(aln, band)]
         h, key, st, ml = best
+        if h == NEG and table is not None and La and Lb:
+            key = st = (1 << S) | 1    # an empty region: cell (1, 1)
+            ml = 0
         i, j, si, sj = key >> S, key & LOW, st >> S, st & LOW
         out[:, aln] = [max(h, 0), si, i, sj, j, ml >> S,
                        (i - si) + (j - sj) - (ml & LOW)]
@@ -341,6 +396,9 @@ _SCHEDULES = [(8, 512, 32, 8, True), (2, 3, 4, 1, True), (1, 4, 3, 2, False),
 # only, the kernel's R 4 and 8, one band and banded
 _TABLE_SCHEDULES = [(4, 32, 32, 8, True), (8, 32, 32, 4, True),
                     (4, 2, 5, 4, True), (8, 3, 4, 2, True)]
+# protein mode with many thin bands: small warps at R 4 and 8
+_THIN_SCHEDULES = [(4, 4, 3, 1, True), (4, 3, 4, 2, True),
+                   (8, 2, 3, 1, True)]
 
 
 @pytest.mark.parametrize(
@@ -410,6 +468,103 @@ def test_kernel_model_tie_across_bands():
         _check_model(a, b, R=2, lanes=4, chunk=4, ahead=2, seed=seed)
 
 
+def test_padded_protein_covers_every_kind():
+    """The inputs reach what they are named for: extents that differ,
+    extent 0 on each side, the best cell on the extent border, a zero
+    tie with a non-empty region."""
+    rng = np.random.default_rng(0)
+    a, b = padded_protein(rng, 16, 30, 25)
+    la, lb = terminal.sw_extents(torch.from_numpy(a), torch.from_numpy(b),
+                                 **PROTEIN)
+    ref = batched_local_align(torch.from_numpy(a), torch.from_numpy(b),
+                              submatrix=torch.from_numpy(BLOSUM62), **PROTEIN)
+    kinds = [ROW_KINDS[r % len(ROW_KINDS)] for r in range(16)]
+    for r, kind in enumerate(kinds):
+        if kind in ("a_empty", "b_empty"):
+            assert la[r] == lb[r] == 0
+        if kind == "best_on_border":
+            assert int(ref.qe[r]) == la[r] and int(ref.se[r]) == lb[r]
+        if kind == "zero_tie":
+            assert la[r] == lb[r] == 1 and int(ref.score[r]) == 0
+    assert len(set(la.tolist())) > 3 and (la != lb).any()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_cut_matrices_equal_the_padded(seed):
+    """The exactness of computing only the extents: the plain version on
+    each row cut to its La_r x Lb_r region equals the JAX package's
+    `batched_local_align` (BLOSUM62, mismatch -4, gap 8, X = 20) on the
+    padded batch, and an empty region gives the JAX package's all-invalid
+    answer, score 0 at cell (1, 1)."""
+    rng = np.random.default_rng(1000 + seed)
+    B, La, Lb = 16, int(rng.integers(8, 41)), int(rng.integers(8, 41))
+    a, b = padded_protein(rng, B, La, Lb)
+    ref = np.stack([np.asarray(f) for f in jax_sw(
+        jnp.asarray(a), jnp.asarray(b), submatrix=jnp.asarray(BLOSUM62),
+        **PROTEIN)])
+    la, lb = terminal.sw_extents(torch.from_numpy(a), torch.from_numpy(b),
+                                 **PROTEIN)
+    sub = torch.from_numpy(BLOSUM62)
+    for r in range(B):
+        ea, eb = int(la[r]), int(lb[r])
+        if ea == 0:
+            assert ref[:, r].tolist() == [0, 1, 1, 1, 1, 0, 0]
+            continue
+        got = batched_local_align(
+            torch.from_numpy(a[r : r + 1, :ea].copy()),
+            torch.from_numpy(b[r : r + 1, :eb].copy()), submatrix=sub,
+            **PROTEIN)
+        np.testing.assert_array_equal(
+            ref[:, r], [int(f[0]) for f in got], err_msg=f"row {r}")
+
+
+def test_extents_are_full_without_the_cut():
+    """With mismatch >= 0 or gap <= 0 the cut is not exact, so the
+    extents are the full widths."""
+    a = np.full((2, 9), AA_X, np.uint8)
+    a[0, :3] = 1
+    t = torch.from_numpy(a)
+    for mm, gap in ((0, 8), (-4, 0), (2, -1)):
+        la, lb = terminal.sw_extents(t, t, invalid_code=AA_X, mismatch=mm,
+                                     gap=gap)
+        assert la.tolist() == lb.tolist() == [9, 9]
+    la, _ = terminal.sw_extents(t, t, **PROTEIN)
+    assert la.tolist() == [3, 0]
+
+
+@pytest.mark.parametrize(
+    "R,lanes,chunk,ahead,packed", _TABLE_SCHEDULES + _THIN_SCHEDULES,
+    ids=[f"R{r}-lanes{n}-chunk{c}-ahead{h}"
+         for r, n, c, h, _p in _TABLE_SCHEDULES + _THIN_SCHEDULES])
+def test_kernel_model_protein_extents(R, lanes, chunk, ahead, packed):
+    """The protein schedule on padded batches (mixed extents, extent 0 on
+    either side, X inside, the best on the extent border, zero ties,
+    other invalid codes): extents found by each group, the int8 profile,
+    warps stepping to their last active lane, bands past La_r."""
+    rng = np.random.default_rng(R * 100 + lanes * 10 + chunk)
+    for t in range(3):
+        B = int(rng.integers(1, 9))
+        La, Lb = (int(x) for x in rng.integers(1, 36, 2))
+        a, b = padded_protein(rng, B, La, Lb,
+                              kinds=tuple(rng.permutation(ROW_KINDS)))
+        _check_model(a, b, R=R, lanes=lanes, chunk=chunk, ahead=ahead,
+                     packed=packed, seed=int(rng.integers(1 << 30)),
+                     table=True)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_kernel_model_protein_plan(seed):
+    """The protein plan's pick, modelled with the card's 32-lane warps."""
+    rng = np.random.default_rng(7000 + seed)
+    B = int(rng.integers(1, 33))
+    La, Lb = (int(x) for x in rng.integers(1, 41, 2))
+    plan = sw_plan(La, Lb, protein=True)
+    assert plan.R in SW_ROWS
+    a, b = padded_protein(rng, B, La, Lb)
+    _check_model(a, b, R=plan.R, lanes=32, chunk=32, ahead=4, seed=seed,
+                 table=True)
+
+
 def test_kernel_model_partly_filled_lane_groups():
     """Short alignments: several per warp, a ragged last warp, a group
     width that does not divide the warp, and idle lanes past the last
@@ -466,6 +621,69 @@ def test_sw_plan_rows(B, La, R):
     bands of 256 rows)."""
     p = sw_plan(La, 40)
     assert p.R == R and (p.nb == 1) is (La <= 256)
+
+
+@pytest.mark.parametrize("La,Lb", [
+    (1, 1), (64, 64), (256, 256), (512, 512), (1024, 1024), (2048, 2048),
+    (4096, 4096), (37, 53), (65, 40), (129, 300), (300, 700), (0, 5),
+    (5, 0), (2047, 2048)])
+def test_sw_protein_plan_covers(La, Lb):
+    """The protein plan covers its rows the way csrc/sw.cu checks, with
+    packed fields and the nucleotide plan's R (`sw_rows`)."""
+    p = sw_plan(La, Lb, protein=True)
+    assert p.R == terminal.sw_rows(La) and 1 <= p.G <= 32 and p.packed
+    assert p == sw_plan(La, Lb)
+    if p.nb == 1:
+        assert p.G * p.R >= La
+    else:
+        assert p.G == 32 and (p.nb - 1) * 32 * p.R < La <= p.nb * 32 * p.R
+
+
+# the faster of R 4 and 8 in chip_smoke.py's protein sweep on the H100
+# (PERF.md §6): (B, width) -> R
+_SWEPT_FASTEST = {(4, 64): 4, (8, 256): 8, (32, 512): 8, (4, 1024): 8,
+                  (16, 2048): 8, (128, 512): 8, (256, 1024): 8,
+                  (256, 2048): 8, (64, 4096): 8, (1024, 256): 8}
+
+
+@pytest.mark.parametrize("B,w", sorted(_SWEPT_FASTEST))
+def test_sw_protein_plan_picks_the_swept_fastest(B, w):
+    """The plan's pick is the R the card ran fastest at each swept shape
+    of the domain confirm: R = 4 where an alignment fits one warp, R = 8
+    wherever it bands, whatever the batch."""
+    assert sw_plan(w, w, protein=True).R == _SWEPT_FASTEST[B, w]
+
+
+def test_sw_plan_rows_per_mode():
+    """Both modes take R 4 and 8 and refuse any other; protein mode
+    refuses unpacked fields."""
+    for protein in (False, True):
+        for R in (2, 16):
+            with pytest.raises(ValueError, match="R must be one of"):
+                sw_plan(64, 64, R=R, protein=protein)
+        assert sw_plan(64, 64, R=8, protein=protein) == (8, 8, 1, True)
+    with pytest.raises(ValueError, match="packed fields only"):
+        sw_plan(64, 64, packed=False, protein=True)
+
+
+@pytest.mark.parametrize("entry,mismatch", [(128, -4), (-129, -4), (11, 128),
+                                            (11, -200)])
+def test_sw_profile_rejects_what_int8_cannot_hold(entry, mismatch):
+    """A table entry or mismatch outside int8 raises on every device
+    (the kernel's query profile is int8); the edges of int8 pass."""
+    sub = BLOSUM62.copy()
+    sub[3, 5] = entry
+    a = torch.zeros((2, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="int8"):
+        sw_table(sub, mismatch, AA_X)
+    with pytest.raises(ValueError, match="int8"):
+        batched_local_align_auto(a, a, submatrix=sub, mismatch=mismatch,
+                                 gap=8, invalid_code=AA_X)
+    sub[3, 5], sub[5, 3] = 127, -128
+    assert sw_table(sub, -128, AA_X)[3, 5] == 127
+    # entries past the invalid code are never read: they may be anything
+    sub[AA_X:, :] = 1000
+    sw_table(sub, -4, AA_X)
 
 
 def test_sw_protein_mode_submatrix():

@@ -668,6 +668,24 @@ def jax_ltr_seed_sweep(first: int, last: int) -> None:
                               loss=[round(x, 4) for x in hist])), flush=True)
 
 
+def jax_superfamily_seed_sweep(first: int, last: int) -> None:
+    """The JAX package's `pretrain_superfamily` at its defaults for seeds
+    first..last on the CPU, one JSON line a seed (curated-eval accuracy
+    and macro-F1, synthetic-eval accuracy, loss by epoch): the recipe's
+    own spread, against which `chip_smoke.py`'s retrain check of the
+    port's seed-0 checkpoint is read."""
+    import json
+
+    from hite_tpu.models.pretrain import pretrain_superfamily
+
+    for seed in range(first, last + 1):
+        metrics, hist = pretrain_superfamily(seed=seed)
+        print(json.dumps(dict(
+            seed=seed, curated_accuracy=metrics["curated_accuracy"],
+            curated_f1=metrics["curated_f1"], accuracy=metrics["accuracy"],
+            loss=[round(float(x), 4) for x in hist])), flush=True)
+
+
 def jax_ltr_inits(first: int, last: int, out_dir: str) -> None:
     """The JAX package's LTRFilterCNN init for seeds first..last, as its
     `train_ltr_filter` draws it (`model.init(key(seed), ...)`), written as
@@ -698,6 +716,7 @@ if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python tests/test_torch_train.py ltr-seeds 0 7
     # JAX_PLATFORMS=cpu python tests/test_torch_train.py ltr-inits 0 31 DIR
     # JAX_PLATFORMS=cpu python tests/test_torch_train.py grad-gap 1 2
+    # JAX_PLATFORMS=cpu python tests/test_torch_train.py sf-seeds 0 7
     import sys
 
     mode, args = sys.argv[1], sys.argv[2:]
@@ -705,6 +724,8 @@ if __name__ == "__main__":
         jax_ltr_inits(int(args[0]), int(args[1]), args[2])
     elif mode == "grad-gap":
         grad_gaps(map(int, args))
+    elif mode == "sf-seeds":
+        jax_superfamily_seed_sweep(int(args[0]), int(args[1]))
     else:
         assert mode == "ltr-seeds", sys.argv
         jax_ltr_seed_sweep(int(args[0]), int(args[1]))
