@@ -47,12 +47,20 @@ Phases, each printing its own lines:
      record, assemble a library with DNA, RC/Helitron, SINE and LTR
      entries, write every output file, annotate the planted copies at
      base-level F1 >= 0.90, score BM_RM2 present 11 of 11 against the
-     planted families, and launch sw and sw_protein; each of
+     planted families, and launch sw and sw_protein; its files, hashed,
+     must equal the JAX package's committed digests of the same run on
+     the CPU (hite_tpu_torch/data/reference/main8.json); each of
      annotate.rescore's SW launches on its own inputs, and each kernel at
      that path's shapes; the main path again, warm, under the profiler
      (device busy share, top device ops); then the same run from the
      substrate's FASTA loaded packed (Genome.from_fasta(packed=True)),
-     every file byte-equal to the unpacked run's; then the mesh path on a
+     every file byte-equal to the unpacked run's; then, counts zeroed just
+     before and read just after, run_pipeline(annotate=True) on the
+     260 kbp diverged genome (families of each class at 5, 10 and 20%
+     per-copy divergence, copy counts across the boundary engine's
+     homology tiers), every SW launch held against the plain version on
+     its own inputs and every file equal to diverged.json's digests; then
+     the mesh path on a
      mesh of every card (two or more) or of 8 shards of the one card:
      scripts.dryrun_multichip's four checks (the chunked self-join,
      annotation, one LTR-filter training step and run_pipeline on the
@@ -121,15 +129,17 @@ Phases, each printing its own lines:
      the sampled device busy share; every SW launch held against the
      plain version on its own inputs;
  14. the hard 8 Mbp substrate through run_pipeline (F1 >= 0.90, BM_RM2
-     11/11; TP/FP/FN beside the JAX package's record), and the coarse
+     11/11; TP/FP/FN beside the JAX package's record; every file equal to
+     hard8.json's digests), and the coarse
      "pairs" and the segments copy mapper, cuda against the CPU, on the
      240 kbp modules genome;
- 15. the kernel line (launches of the main, pan, scale, training, mesh
-     and domain library paths; sw_protein's bound over the real cells,
-     its padded bound and real/padded share beside it), the
-     card line, and the result line (last).
+ 15. the kernel line (launches of the main, pan, scale, training, mesh,
+     domain library and diverged paths; sw_protein's bound over the real
+     cells, its padded bound and real/padded share beside it), the card
+     line, and the result line (last).
 
-Exits non-zero, printing no result, without a GPU or outside a checkout.
+Exits non-zero, printing no result, without a GPU or outside a checkout,
+and fails when an input digest or a file differs from the JAX package's.
 Detailed numbers go to smoke_out/chip_smoke.json, the runs' output files
 to smoke_out/.
 """
@@ -2040,6 +2050,7 @@ def hard_phase() -> dict:
 
     genome, truth = pan_run.build_bench_genome(8_000_000, hard=True,
                                                device="cuda")
+    contigs = {"chr1": genome.flat[: genome.size].copy()}
     cfg, params = pan_run.pan_config()
     out = os.path.join("smoke_out", "hard")
     shutil.rmtree(out, ignore_errors=True)
@@ -2061,12 +2072,81 @@ def hard_phase() -> dict:
     assert acc["F1"] >= 0.90, f"hard substrate F1 {acc['F1']} below 0.90"
     assert acc["BM_RM2"]["present"] == acc["BM_RM2"]["total"] == 11, \
         acc["BM_RM2"]
+    ref = check_reference("hard8", contigs, out)
     return dict(wall_s=wall, accuracy=acc, equal_to_record=same,
-                library=len(res.libs["merged"]))
+                library=len(res.libs["merged"]), reference=ref)
 
 
 # BENCH_r05.json "hard_accuracy": the JAX package's hard 8 Mbp result
 HARD_RECORDED = dict(TP=173218, FP=3215, FN=1340, F1=0.987)
+
+
+def check_reference(name, contigs, out_dir) -> dict:
+    """The port's output files in `out_dir`, written on the card, against
+    the JAX package's committed digests of the same run on the CPU
+    (`hite_tpu_torch/data/reference/NAME.json`, read as JSON): the input
+    codes' digest and every file's sha256 must be equal."""
+    from hite_tpu_torch.scripts import reference
+
+    got = reference.compare(name, contigs, out_dir)
+    n_equal = len(got["files"]) - len(got["differ"]) - len(got["missing"])
+    print(f"reference {name}: input digest equal {got['input_equal']}; "
+          f"{len(got['files'])} files compared with the JAX package's, "
+          f"{n_equal} equal; differ {got['differ']}; missing "
+          f"{got['missing']}; not in the reference {got['extra']}")
+    assert got["input_equal"], f"{name}: the input codes' digest differs"
+    assert not (got["differ"] or got["missing"] or got["extra"]), \
+        f"{name}: the card's files differ from the JAX package's: {got}"
+    return got
+
+
+def diverged_phase(sass) -> dict:
+    """The diverged genome (`pan_run.diverged_genome_codes`: families of
+    each class at 5-20% per-copy divergence, copy counts across the
+    boundary engine's homology tiers) through run_pipeline(annotate=True)
+    on cuda with the small CoarseParams: every SW launch held against the
+    plain version on its own inputs, and every file against the JAX
+    package's digests (diverged.json)."""
+    from hite_tpu_torch.config import AlignConfig, PipelineConfig
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.pipeline.coarse import CoarseParams
+    from hite_tpu_torch.pipeline.run import run_pipeline
+    from hite_tpu_torch.scripts import pan_run
+
+    codes, truth = pan_run.diverged_genome_codes()
+    out = os.path.join("smoke_out", "diverged")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = PipelineConfig(annotate=True, align=AlignConfig(
+        fixed_extend_base_threshold=2000))
+    hlog.STAGE_TIMES.clear()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RecordSW() as rec:
+        res = run_pipeline(
+            Genome.from_dict({"chr1": codes.copy()}, device="cuda"), cfg,
+            out_dir=out, coarse_params=CoarseParams(**pan_run.SMALL_COARSE))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    stages = dict(hlog.STAGE_TIMES)
+    print(f"diverged path: run_pipeline(annotate=True) at {len(codes)} bp: "
+          f"wall {wall:.3f} s; library {len(res.libs['merged'])} entries; "
+          f"annotation {len(res.annotation)} hits; sw launches "
+          f"{launches['sw']}, sw_protein {launches['sw_protein']}; stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              stages.items(), key=lambda kv: -kv[1])[:8]))
+    calls = pan_run.diverged_calls(res, truth)
+    print("diverged path: planted family (class, rate, copies): accepted "
+          "interval's end offset in bp, or None when none overlaps; "
+          + "; ".join(f"{n} {truth['families'][n]}: {v}"
+                      for n, v in calls.items()))
+    assert launches["sw"] > 0, "the diverged path never launched sw"
+    rows = check_recorded(rec.calls, sass, "diverged path")
+    ref = check_reference("diverged", {"chr1": codes}, out)
+    return dict(bp=len(codes), wall_s=wall, stages=stages,
+                launches=launches, sw_rows=rows, reference=ref, calls=calls,
+                library=len(res.libs["merged"]))
 
 
 def strategies(device):
@@ -2746,7 +2826,8 @@ def main() -> int:
     print(f"main path: BM_RM2 against the {len(seqs)} planted families: "
           f"{rm2}")
     assert rm2["present"] == len(seqs) == 11, f"BM_RM2 {rm2}"
-    report["main_path"] = dict(
+    main_ref = check_reference("main8", {"chr1": bg}, main_dir)
+    report["main_path"] = dict(reference=main_ref,
         bp=length, wall_s=wall, stages=stages, modules=mod_report,
         ltr_records=[(r.start, r.end, r.lltr_end, r.rltr_start,
                       r.identity, r.tsd_len, r.copy_count, r.superfamily)
@@ -2824,6 +2905,11 @@ def main() -> int:
     # ---- the packed host tier: the same run from a packed FASTA load
     report["packed"] = check_packed(bg, main_dir)
     lap("native fasta, tir path, main path, packed run")
+    # ---- diverged families at the homology tiers, held to the JAX
+    # package's files
+    diverged = diverged_phase(sass)
+    report["diverged"] = diverged
+    lap("diverged")
     # ---- the mesh path: the dryrun, run_pipeline(mesh=...) against the
     # main path's files, the sharded training step, the scaling walls
     mesh = mesh_phase(bg, main_dir, launches, sass)
@@ -2911,7 +2997,8 @@ def main() -> int:
              prot["shapes"] + prot["borders"])):
         mr = (main_rows[kname] + pan["sw_rows"][kname]
               + scale["sw_rows"][kname] + train["sw_rows"][kname]
-              + mesh["sw_rows"][kname] + dlib["sw_rows"][kname])
+              + mesh["sw_rows"][kname] + dlib["sw_rows"][kname]
+              + diverged["sw_rows"][kname])
         tot = sum(r["launches"] for r in mr)
         wavg = lambda key: sum(r[key] * r["launches"] for r in mr) / tot
         by_path = {"main": launches[kname],
@@ -2919,7 +3006,8 @@ def main() -> int:
                    "scale": scale["launches"][kname],
                    "train": train["launches"][kname],
                    "mesh": mesh["launches"][kname],
-                   "domain_library": dlib["launches"][kname]}
+                   "domain_library": dlib["launches"][kname],
+                   "diverged": diverged["launches"][kname]}
         entry = {
             "name": kname, "route": "cuda",
             "source": "hite_tpu_torch/csrc/sw.cu", "replaces": replaces,

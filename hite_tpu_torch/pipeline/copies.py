@@ -446,9 +446,10 @@ class CopyFinder:
         Lp = int(flat_d.shape[0])
         if Lp <= self.max_libjoin_bp:
             # INDEXED join: the sorted two-strand stream is built once per
-            # genome and cached on the genome's device cache
-            ck = ("join_sorted", idx.use_masked, k,
-                  None if self.mesh is None else id(self.mesh))
+            # genome and cached on the genome's device cache.  It is built
+            # on the genome's device whatever the mesh, so every mesh
+            # shares one entry (the masking eviction reads key[1])
+            ck = ("join_sorted", idx.use_masked, k)
             g_sorted = genome._device_cache.get(ck)
             if g_sorted is None:
                 g_sorted = libjoin_genome_sorted(flat_d, k=k)

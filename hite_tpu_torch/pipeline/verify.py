@@ -199,6 +199,9 @@ def verify_families(
             rep_copy_sets = finder.find_copies(
                 [seqs[i] for i in fetch_idx],
                 min_coverage=min_coverage, max_copies=cfg.msa.max_copies)
+    if len(rep_copy_sets) != len(fetch_idx):
+        raise ValueError(f"{len(rep_copy_sets)} injected copy sets for "
+                         f"{len(fetch_idx)} fetched families")
     copy_sets: dict = dict(zip(fetch_idx, rep_copy_sets))
 
     groups = cluster_by_copies([copy_sets[i] for i in rep_idx])

@@ -387,6 +387,109 @@ def build_bench_genome(length: int = 8_000_000, scale: int = 1,
     return Genome.from_dict({"chr1": bg}, device=device), truth
 
 
+# the small genomes' CoarseParams (the 160 kbp parity genome's): a 32 kbp
+# segment, and a 128 kbp cap that chunks the self-join
+SMALL_COARSE = dict(seg_len=32_768, pair_batch=16, stride=4, max_hits=4,
+                    max_selfjoin_bp=1 << 17)
+
+# (class, per-copy mutation rate, copies) of the diverged genome's
+# families: each class takes each rate once, and the copy counts fall in
+# the boundary engine's three homology tiers (0.95 up to 5 rows, 0.9 up
+# to 10, 0.7 beyond; `config.MSAConfig.homo_thresholds`)
+DIVERGED_FAMILIES = (
+    ("TIR", 0.05, 5), ("TIR", 0.10, 9), ("TIR", 0.20, 13),
+    ("SINE", 0.05, 9), ("SINE", 0.10, 13), ("SINE", 0.20, 5),
+    ("Helitron", 0.05, 13), ("Helitron", 0.10, 4), ("Helitron", 0.20, 9),
+    ("LTR", 0.05, 5), ("LTR", 0.10, 9), ("LTR", 0.20, 12),
+)
+
+
+def diverged_genome_codes(length: int = 260_000, seed: int = 31):
+    """One contig of `length` bp with DIVERGED_FAMILIES planted: TIRs with
+    a 5 bp TSD, SINEs with a polyA tail and a 12 bp TSD, Helitrons with
+    the bench's head and tail on an A|T host site, intact LTRs (TG..CA)
+    with a 5 bp TSD; each copy mutated at its family's rate, no two
+    copies within 200 bp.
+
+    Returns (codes uint8 [length], truth): truth holds the planted
+    "intervals" int64 [N, 2], their "classes" and family "names", and
+    "families" {name: (class, rate, copies)}."""
+    rng = np.random.default_rng(seed)
+    bg = rng.integers(0, 4, length).astype(np.uint8)
+    placed, families = [], {}
+
+    def free(pos, end):
+        return all(pos >= e + 200 or end + 200 <= s
+                   for s, e, _k, _n in placed)
+
+    for f, (klass, rate, n) in enumerate(DIVERGED_FAMILIES):
+        if klass == "TIR":
+            t = rng.integers(0, 4, 20).astype(np.uint8)
+            while t[0] == 3 and t[1] == 2:
+                t = rng.integers(0, 4, 20).astype(np.uint8)
+            te = np.concatenate([t, rng.integers(0, 4, 500).astype(np.uint8),
+                                 (3 - t)[::-1]])
+        elif klass == "SINE":
+            te = np.concatenate([rng.integers(0, 4, 300).astype(np.uint8),
+                                 np.zeros(14, np.uint8)])
+        elif klass == "Helitron":
+            te = np.concatenate([
+                encode_seq("TCTCTACTA"),
+                rng.integers(0, 4, 800).astype(np.uint8),
+                encode_seq("CAATGAACG" + "ACGTACGTA" + "CTAGT")])
+        else:
+            t = rng.integers(0, 4, 250).astype(np.uint8)
+            t[0], t[1], t[-2], t[-1] = 3, 2, 1, 0
+            te = np.concatenate([t, rng.integers(0, 4, 1100).astype(np.uint8),
+                                 t])
+        name = f"{klass}_{f}"
+        families[name] = (klass, rate, n)
+        tsd = {"TIR": 5, "SINE": 12, "LTR": 5}.get(klass, 0)
+        done = 0
+        while done < n:
+            pos = int(rng.integers(1000, length - len(te) - 1000))
+            if not free(pos - tsd, pos + len(te) + tsd):
+                continue
+            copy = te.copy()
+            muts = rng.random(len(copy)) < rate
+            copy[muts] = (copy[muts] + rng.integers(1, 4, muts.sum())) % 4
+            if tsd:
+                td = rng.integers(0, 4, tsd).astype(np.uint8)
+                bg[pos - tsd: pos] = td
+                bg[pos + len(copy): pos + len(copy) + tsd] = td
+            if klass == "Helitron":
+                bg[pos - 1], bg[pos + len(copy)] = 0, 3
+            bg[pos: pos + len(copy)] = copy
+            placed.append((pos, pos + len(copy), klass, name))
+            done += 1
+    truth = {"intervals": np.array([p[:2] for p in placed],
+                                   np.int64).reshape(-1, 2),
+             "classes": [p[2] for p in placed],
+             "names": [p[3] for p in placed],
+             "families": families}
+    return bg, truth
+
+
+def diverged_calls(result, truth) -> Dict[str, Optional[int]]:
+    """{planted family: None when no accepted interval of its class (the
+    TIR, Helitron and non-LTR modules' families, the intact LTR records)
+    overlaps one of its copies, else the smallest end offset max(|start -
+    planted start|, |end - planted end|) over the overlapping pairs} of a
+    run_pipeline result on `diverged_genome_codes`' genome."""
+    accepted = {"TIR": result.tir.accepted.intervals.tolist(),
+                "Helitron": result.helitron.accepted.intervals.tolist(),
+                "SINE": result.non_ltr.accepted.intervals.tolist(),
+                "LTR": [(r.start, r.end) for r in result.ltr.records]}
+    calls = {}
+    for name, (klass, _rate, _n) in truth["families"].items():
+        copies = [iv for iv, nm in zip(truth["intervals"].tolist(),
+                                       truth["names"]) if nm == name]
+        off = [max(abs(a - s), abs(b - e)) for a, b in accepted[klass]
+               for s, e in copies if min(b, e) > max(a, s)]
+        calls[name] = min(off) if off else None
+    return calls
+
+
 def accuracy_metrics(genome, result, truth, cfg) -> dict:
     """Base-level sens/prec/F1 of the annotation against the planted
     truth, per-class sensitivity, library-entries-per-family ratio, and

@@ -50,6 +50,7 @@ MODULES = [
     "hite_tpu_torch.parallel.dispatch",
     "hite_tpu_torch.scripts.dryrun_multichip",
     "hite_tpu_torch.scripts.mesh_scaling", "hite_tpu_torch.scripts.sw_compare",
+    "hite_tpu_torch.scripts.reference",
 ]
 
 

@@ -454,8 +454,10 @@ def test_copy_finder_sharded(planted, shape, strategy):
 def test_copy_finder_mesh_matches_jax_mesh(planted):
     """The segments mapper under a mesh in both packages (the JAX package
     walks segments one at a time there, the port keeps its blocks):
-    the same hits on this genome; and the join's sorted-stream cache is
-    keyed by the mesh in both."""
+    the same hits on this genome; and the port's join, whose sorted
+    stream is built on the genome's device under any mesh, keeps one
+    cached stream per (masked, k) where the JAX package keys it by the
+    mesh's sharding too."""
     from hite_tpu.config import AlignConfig as JaxAlign
     from hite_tpu.pipeline.copies import CopyFinder as JaxFinder
     from hite_tpu.pipeline.copies import GenomeIndex as JaxIndex
@@ -469,8 +471,39 @@ def test_copy_finder_mesh_matches_jax_mesh(planted):
     assert _hits(jaxed) == _hits(ref["segments"])
     mesh = _mesh((8, 1))
     CopyFinder(gi, mesh=mesh).find_copies(cands, min_coverage=0.9)
-    keys = {k[3] for k in g._device_cache if k[0] == "join_sorted"}
-    assert {None, id(mesh)} <= keys
+    keys = [k for k in g._device_cache if k[0] == "join_sorted"]
+    assert keys and all(len(k) == 3 for k in keys), keys
+
+
+def test_join_cache_shared_across_meshes(planted, tmp_path):
+    """Two distinct 8-shard meshes, one after the other, annotating one
+    Genome: the indexed join's cache holds one sorted stream per (masked,
+    k), reused by the second mesh, and both runs write byte-equal
+    annotation files."""
+    import filecmp
+
+    from hite_tpu_torch.config import AlignConfig, PipelineConfig
+    from hite_tpu_torch.pipeline.annotate import (
+        annotate_genome, write_annotation,
+    )
+
+    g, gi, _tes, cands, _ref = planted
+    lib = {f"TE_{i}#Unknown": c for i, c in enumerate(cands[:2])}
+    cfg = PipelineConfig(align=AlignConfig())
+    streams = []
+    for i, shape in enumerate(((8, 1), (2, 4))):
+        hits = annotate_genome(g, lib, cfg, gi, mesh=_mesh(shape))
+        write_annotation(str(tmp_path / f"run{i}"), hits, g)
+        streams.append({k: v for k, v in g._device_cache.items()
+                        if k[0] == "join_sorted"})
+    keys = list(streams[1])
+    assert keys and all(len(k) == 3 for k in keys), keys
+    assert streams[0].keys() == streams[1].keys()
+    assert all(streams[0][k] is streams[1][k] for k in keys)
+    assert len(hits) >= 14
+    for ext in (".gff", ".out", ".tbl", ".full_length.gff"):
+        assert filecmp.cmp(str(tmp_path / f"run0{ext}"),
+                           str(tmp_path / f"run1{ext}"), shallow=False), ext
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)

@@ -95,10 +95,18 @@ def _parity_genome() -> np.ndarray:
 
 def _substrate(name):
     """({contig: codes}, CoarseParams kwargs, AlignConfig kwargs)."""
-    small = dict(seg_len=32_768, pair_batch=16, stride=4, max_hits=4,
-                 max_selfjoin_bp=1 << 17)
+    from hite_tpu_torch.scripts import pan_run
+
+    small = dict(pan_run.SMALL_COARSE)
     if name == "parity_160k":
         return ({"chr1": _parity_genome()}, small,
+                dict(fixed_extend_base_threshold=2000))
+    if name == "diverged":
+        # families at 5-20% per-copy divergence, copy counts across the
+        # boundary engine's homology tiers (the port's builder, which
+        # `chip_smoke.py` runs on the card too)
+        codes, _truth = pan_run.diverged_genome_codes()
+        return ({"chr1": codes}, small,
                 dict(fixed_extend_base_threshold=2000))
     if name == "two_contigs":
         # the same sequence cut into two contigs (spacer, contig-bounded
