@@ -9,7 +9,12 @@ Phases, each printing its own lines:
      (NUCLEOTIDE_RECORDED) or the run fails;
      and the native FASTA reader against the Python reader on the 8 Mbp
      substrate written as a real assembly's FASTA (two contigs, CRLF,
-     wrapped lines, soft-masking, IUPAC codes);
+     wrapped lines, soft-masking, IUPAC codes); then the clock: one 8192
+     x 8192 float32 product inside a stage span, under the profiler, with
+     a synchronise before the span closes, its stage lines stamped as
+     gpubench/harness.py stamps them; the profiler's device interval of
+     the kernel must lie inside the span's (offsets printed), so the
+     program's spans and the device trace share one clock;
   3. the SW kernel against its plain PyTorch version on the card, bit-exact
      on all 7 outputs, at the TIR gate, annotation, LTR and longer widths,
      a ragged batch and N-heavy rows, and at border shapes that force each
@@ -125,8 +130,7 @@ Phases, each printing its own lines:
      printed), annotation F1 >= 0.90, every planted TIR, SINE and LTR
      family found, BM_RM2 present = the families found (the Helitron
      families the JAX package also loses, listed); wall, Mbp/s, stage map,
-     peak RSS, peak device memory and
-     the sampled device busy share; every SW launch held against the
+     peak RSS and peak device memory; every SW launch held against the
      plain version on its own inputs;
  14. the hard 8 Mbp substrate through run_pipeline (F1 >= 0.90, BM_RM2
      11/11; TP/FP/FN beside the JAX package's record; every file equal to
@@ -2004,9 +2008,7 @@ def scale_phase(sass, mbp=100) -> dict:
     print(f"scale run: wall {record['wall_s']:.2f} s, "
           f"{record['mbp_per_s']:.4f} Mbp/s; chunks {record['chunks']}; "
           f"peak RSS {record['peak_rss_gb']:.2f} GB, peak device memory "
-          f"{record['peak_device_gb']:.2f} GB; device busy (sampled "
-          f"utilization, {record['busy_samples']} samples) "
-          f"{record['device_busy_sampled']}; library "
+          f"{record['peak_device_gb']:.2f} GB; library "
           f"{record['library_entries']} entries, annotation "
           f"{record['annotation_hits']} hits; F1 {acc['F1']} (sensitivity "
           f"{acc['sensitivity']} precision {acc['precision']}; " + ", ".join(
@@ -2577,6 +2579,46 @@ def domain_library_phase(sass, n=1024, n_cpu=32) -> dict:
                 own_protein_found=found, cpu_s=cpu_s, sw_rows=rows)
 
 
+def clock_phase() -> dict:
+    """One large kernel inside a `stage_timer` span, under the profiler,
+    synchronised before the span closes, its stage lines stamped as the
+    benchmark stamps them: the kernel's device interval must lie inside
+    the span's, or the benchmark's idle labels mix two clocks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpubench.harness import StageLines
+    from gpubench.trace_reduce import device_events, stage_intervals
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn(8192, 8192, device="cuda", generator=g)
+    b = torch.randn(8192, 8192, device="cuda", generator=g)
+    (a @ b).sum().item()                       # cuBLAS's first call
+    lines = StageLines()
+    lines.keep = True
+    hlog.logger.addHandler(lines)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            with hlog.stage_timer("smoke.clock"):
+                a @ b
+                torch.cuda.synchronize()
+    finally:
+        hlog.logger.removeHandler(lines)
+    (s, e, _), = [iv for iv in stage_intervals(lines.lines)
+                  if iv[2] == "smoke.clock"]
+    kname, ks, ke = max(device_events(prof), key=lambda ev: ev[2] - ev[1])
+    rec = {"kernel": kname[:96], "kernel_ms": (ke - ks) / 1e6,
+           "span_ms": (e - s) / 1e6, "lead_ms": (ks - s) / 1e6,
+           "tail_ms": (e - ke) / 1e6}
+    print(f"clock: {rec['kernel']} {rec['kernel_ms']:.3f} ms on the device "
+          f"inside the span's {rec['span_ms']:.3f} ms: starts "
+          f"{rec['lead_ms']:.3f} ms after the span's start line, ends "
+          f"{rec['tail_ms']:.3f} ms before its done line")
+    assert rec["lead_ms"] >= 0 and rec["tail_ms"] >= 0, \
+        f"the kernel's device interval lies outside its span: {rec}"
+    return rec
+
+
 class Laps:
     """Prints, and keeps in the report, each phase's seconds since the
     previous mark (the script's time budget by phase)."""
@@ -2639,6 +2681,8 @@ def main() -> int:
         "the nucleotide instantiations' SASS changed"
 
     lap("build")
+    report["clock"] = clock_phase()
+    lap("clock")
     # ---- SW kernel vs plain, listed shapes, borders and forced variants
     rows = []
     for i, (label, B, La, Lb, nf) in enumerate(SW_SHAPES):

@@ -30,7 +30,7 @@ from hite_tpu_torch.ops.msa import project_to_center
 from hite_tpu_torch.parallel.mesh import Mesh, run_sharded
 from hite_tpu_torch.pipeline.candidates import bucket_for, pad_seqs
 from hite_tpu_torch.pipeline.copies import CopyHit
-from hite_tpu_torch.utils.log import count
+from hite_tpu_torch.utils.log import stage_timer
 
 
 @dataclass
@@ -215,52 +215,60 @@ def analyze_families_batched(
     items: Sequence[Tuple[Tuple[int, int], Sequence[CopyHit]]],
     cfg: MSAConfig,
     mesh: Optional[Mesh] = None,
+    stage: str = "boundary",
 ) -> List[Tuple[FamilyAnalysis, int]]:
     """Bucketed batched analysis of many families in few device calls:
     one batch per trunc mode, capped so F x R x W <= 2^23 cells, the
     family dim padded to a power of two (as in the JAX package) and, with
     `mesh`, on to a multiple of the mesh size, each batch's family axis
-    sharded over the mesh (identical results)."""
-    preps = [_prep_family(genome, it, cp, cfg) for it, cp in items]
+    sharded over the mesh (identical results).  The host prep of every
+    batch runs under the span `{stage}.ba_prep`, the device batches and
+    their unpacking under `{stage}.ba_batch`."""
+    with stage_timer(f"{stage}.ba_prep"):
+        preps = [_prep_family(genome, it, cp, cfg) for it, cp in items]
+        buckets: dict = {}
+        for i, p in enumerate(preps):
+            buckets.setdefault(p[8], []).append(i)   # trunc_at
+        capped = []
+        for trunc_at, idxs in buckets.items():
+            rb = max(preps[i][7] for i in idxs)
+            width = max(preps[i][6] for i in idxs)
+            cap = max(8, (1 << 23) // max(rb * width, 1))
+            for b0 in range(0, len(idxs), cap):
+                capped.append((trunc_at, idxs[b0 : b0 + cap]))
+        packed = []
+        for trunc_at, idxs in capped:
+            F = len(idxs)
+            Fp = max(4, 1 << (F - 1).bit_length())
+            if mesh is not None:
+                Fp = -(-Fp // mesh.size) * mesh.size
+            rb = max(preps[i][7] for i in idxs)
+            width = max(preps[i][6] for i in idxs)
+            centers = np.full((Fp, width), 4, np.uint8)
+            mats = np.full((Fp, rb, width), 4, np.uint8)
+            lens = np.zeros((Fp, rb), np.int32)
+            al = np.zeros(Fp, np.int32)
+            ar = np.zeros(Fp, np.int32)
+            for b, i in enumerate(idxs):
+                p = preps[i]
+                centers[b, : p[6]] = p[0]
+                mats[b, : p[7], : p[6]] = p[1]
+                lens[b, : p[7]] = p[2]
+                al[b] = p[3]
+                ar[b] = p[4]
+            packed.append((trunc_at, idxs, (centers, mats, lens, al, ar)))
     out: List[Optional[Tuple[FamilyAnalysis, int]]] = [None] * len(items)
-    buckets: dict = {}
-    for i, p in enumerate(preps):
-        buckets.setdefault(p[8], []).append(i)   # trunc_at
-    capped = []
-    for trunc_at, idxs in buckets.items():
-        rb = max(preps[i][7] for i in idxs)
-        width = max(preps[i][6] for i in idxs)
-        cap = max(8, (1 << 23) // max(rb * width, 1))
-        for b0 in range(0, len(idxs), cap):
-            capped.append((trunc_at, idxs[b0 : b0 + cap]))
-    for trunc_at, idxs in capped:
-        F = len(idxs)
-        Fp = max(4, 1 << (F - 1).bit_length())
-        if mesh is not None:
-            Fp = -(-Fp // mesh.size) * mesh.size
-        rb = max(preps[i][7] for i in idxs)
-        width = max(preps[i][6] for i in idxs)
-        centers = np.full((Fp, width), 4, np.uint8)
-        mats = np.full((Fp, rb, width), 4, np.uint8)
-        lens = np.zeros((Fp, rb), np.int32)
-        al = np.zeros(Fp, np.int32)
-        ar = np.zeros(Fp, np.int32)
-        for b, i in enumerate(idxs):
-            p = preps[i]
-            centers[b, : p[6]] = p[0]
-            mats[b, : p[7], : p[6]] = p[1]
-            lens[b, : p[7]] = p[2]
-            al[b] = p[3]
-            ar[b] = p[4]
-        M, homo, cons, lf, lp, rf, rp = _run_batch(
-            genome, centers, mats, lens, al, ar, trunc_at, mesh)
-        for b, i in enumerate(idxs):
-            fa = FamilyAnalysis(
-                M=M[b], homo=homo[b], cons=cons[b],
-                left_found=bool(lf[b]), left_pos=int(lp[b]),
-                right_found=bool(rf[b]), right_pos=int(rp[b]),
-                trunc_at=trunc_at, trunc_gap=preps[i][9])
-            out[i] = (fa, preps[i][5])
+    with stage_timer(f"{stage}.ba_batch"):
+        for trunc_at, idxs, arrays in packed:
+            M, homo, cons, lf, lp, rf, rp = _run_batch(
+                genome, *arrays, trunc_at, mesh)
+            for b, i in enumerate(idxs):
+                fa = FamilyAnalysis(
+                    M=M[b], homo=homo[b], cons=cons[b],
+                    left_found=bool(lf[b]), left_pos=int(lp[b]),
+                    right_found=bool(rf[b]), right_pos=int(rp[b]),
+                    trunc_at=trunc_at, trunc_gap=preps[i][9])
+                out[i] = (fa, preps[i][5])
     return out  # type: ignore[return-value]
 
 
@@ -280,13 +288,11 @@ def adjust_candidate(
     """One round of boundary adjustment for one candidate."""
     n = len(copies)
     if n < min_copies:
-        count("boundary.low_copy")
         return AdjustResult(accepted=False, start=int(interval[0]),
                             end=int(interval[1]), copy_count=n, low_copy=True)
     fa, center_start = precomputed or analyze_family(
         genome, interval, copies, cfg)
     if not (fa.left_found and fa.right_found):
-        count("boundary.not_found")
         return AdjustResult(accepted=False, start=int(interval[0]),
                             end=int(interval[1]), copy_count=n,
                             low_copy=False)
@@ -297,11 +303,9 @@ def adjust_candidate(
         return p + gap if (T and p >= T) else p
 
     if not ok or _g(br) - _g(bl) < 30:
-        count("boundary.judge_reject")
         return AdjustResult(accepted=False, start=int(interval[0]),
                             end=int(interval[1]), copy_count=n,
                             low_copy=False)
-    count("boundary.accepted")
     if T and br >= T > bl:
         # truncated family: head consensus + the frame's cut-out middle
         # genome sequence + tail consensus

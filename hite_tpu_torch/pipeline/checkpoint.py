@@ -29,7 +29,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from hite_tpu_torch.config import PipelineConfig
-from hite_tpu_torch.utils.log import logger
+from hite_tpu_torch.utils.log import logger, stage_timer
 
 
 def config_hash(cfg: PipelineConfig) -> str:
@@ -129,12 +129,19 @@ class Checkpointer:
         self._pending.clear()
 
     def run(self, stage: str, fn: Callable[[], Any]) -> Any:
-        """Load the stage snapshot or compute + save it."""
-        cached = self.load(stage)
+        """Load the stage snapshot or compute + save it.  With snapshots
+        on, the load (with its wait on in-flight writes) runs under the
+        span `{stage}.snapshot_load` and the pickling under
+        `{stage}.snapshot_save`."""
+        if not self.dir:
+            return fn()
+        with stage_timer(f"{stage}.snapshot_load"):
+            cached = self.load(stage)
         if cached is not None:
             return cached
         result = fn()
-        self.save(stage, result)
+        with stage_timer(f"{stage}.snapshot_save"):
+            self.save(stage, result)
         return result
 
     def clean(self) -> None:

@@ -442,8 +442,9 @@ def cross_class_filter(
             min_coverage=0.9, max_copies=cfg.msa.max_copies)
         all_batch = [((int(term_iv[i, 0]), int(term_iv[i, 1])), copies)
                      for i, copies in enumerate(all_copy_sets)]
-        all_analyses = analyze_families_batched(genome, all_batch, cfg.msa,
-                                                mesh=mesh)
+        with stage_timer("ltr.ba_analyze"):
+            all_analyses = analyze_families_batched(
+                genome, all_batch, cfg.msa, mesh=mesh, stage="ltr")
 
     def rejudge(idxs: List[int], judge, min_copies: int) -> List[int]:
         """Terminals whose full-length copy frames pass the class judge

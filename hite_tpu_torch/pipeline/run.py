@@ -228,14 +228,18 @@ def modules_stage(genome: Genome, coarse: np.ndarray, cfg: PipelineConfig,
     want = (lambda t: cfg.te_type in ("all", t))
     gates = {}
     if want("tir"):
-        gates["tir"] = gate_tir(genome, coarse, cfg)
+        with stage_timer("tir.gate"):
+            gates["tir"] = gate_tir(genome, coarse, cfg)
     if want("helitron"):
-        gates["helitron"] = gate_helitron(genome, coarse, cfg)
+        with stage_timer("helitron.gate"):
+            gates["helitron"] = gate_helitron(genome, coarse, cfg)
     if want("non-ltr") and cfg.is_denovo_nonltr:
-        gates["non_ltr"] = gate_non_ltr(genome, coarse, cfg)
+        with stage_timer("non_ltr.gate"):
+            gates["non_ltr"] = gate_non_ltr(genome, coarse, cfg)
 
-    plans = {k: prepare_families(genome, g, cfg)
-             for k, g in gates.items() if len(g)}
+    with stage_timer("modules.plans"):
+        plans = {k: prepare_families(genome, g, cfg)
+                 for k, g in gates.items() if len(g)}
     # reps + first alternates per similarity group ride the same join
     union = [(k, i) for k, pl in plans.items() for i in pl.prefetch_idx]
     per_mod: Dict[str, list] = {k: [] for k in plans}
@@ -250,10 +254,13 @@ def modules_stage(genome: Genome, coarse: np.ndarray, cfg: PipelineConfig,
     runners = {"tir": run_tir_detection,
                "helitron": run_helitron_detection,
                "non_ltr": run_non_ltr_detection}
-    return {k: runners[k](genome, coarse, cfg, gindex, gated=g,
-                          plan=plans.get(k), rep_copy_sets=per_mod.get(k),
-                          mesh=mesh)
-            for k, g in gates.items()}
+    out = {}
+    for k, g in gates.items():
+        with stage_timer(f"{k}.detect"):
+            out[k] = runners[k](genome, coarse, cfg, gindex, gated=g,
+                                plan=plans.get(k),
+                                rep_copy_sets=per_mod.get(k), mesh=mesh)
+    return out
 
 
 def mask_found(genome: Genome, found_intervals: Sequence[np.ndarray]

@@ -398,6 +398,9 @@ def verify_families(
         for g in ordered_members:
             begin_attempt(g)
 
+        # the yield's numerator exists, at 0, for a module that finishes
+        # no family
+        count(f"{stage}.ba_done_items", 0)
         while pending or fetch_queue:
             if fetch_queue:
                 fq, fetch_queue = fetch_queue, []
@@ -418,7 +421,7 @@ def verify_families(
             with stage_timer(f"{stage}.ba_analyze"):
                 analyses = analyze_families_batched(
                     genome, [(it[1], it[2]) for it in batch], cfg.msa,
-                    mesh=mesh)
+                    mesh=mesh, stage=stage)
             for (g, interval, copies, rnd), pre in zip(batch, analyses):
                 st = family_state[g]
                 result = adjust_candidate(genome, interval, copies, cfg.msa,
@@ -438,13 +441,13 @@ def verify_families(
                                     and superstring_of_accepted(
                                         result.consensus))
                         if too_long:
-                            count("boundary.peel_superstring")
                             st["ai"] += 1
                             begin_attempt(g)
                         elif result.end - result.start >= \
                                 cfg.library.min_te_len:
                             st["done"] = result
                             st["done_copies"] = copies
+                            count(f"{stage}.ba_done_items")
                             finish_group(g)
                         else:
                             st["ai"] += 1

@@ -6,7 +6,7 @@ scaled by mbp // 8 (the TE density of the 8 Mbp substrate), runs
 coarse -> TIR / Helitron / non-LTR -> rescue -> LTR -> library ->
 annotation), and prints one JSON record with the keys of the JAX
 package's `scripts/scale_run.py` (`compile_s` is the kernel build time;
-`peak_device_gb`, the sampled device busy share and the card line added).
+`peak_device_gb` and the card line added).
 At 100 Mbp the genome pads to 2^27 bp, so the chunked self-join, the
 chunked copy join and the LTR chunk grid all run; the record's `chunks`
 counts each.
@@ -22,51 +22,11 @@ from __future__ import annotations
 import argparse
 import json
 import resource
-import subprocess
-import threading
 import time
-from typing import List, Optional
+from typing import Optional
 
 CHUNK_COUNTERS = ("coarse.selfjoin.chunks", "copies.join.chunks",
                   "ltr.candidates.chunks")
-
-
-class UtilizationSampler:
-    """Samples the card's `utilization.gpu` (the share of each sample
-    period in which a kernel ran) from `nvidia-smi -lms` while the block
-    runs; `mean` is the run's device busy share, 0-1, at that
-    granularity.  The nvidia-smi process is stopped on exit."""
-
-    def __init__(self, period_ms: int = 200):
-        self.period_ms = period_ms
-        self.samples: List[float] = []
-
-    def __enter__(self):
-        self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=utilization.gpu",
-             "--format=csv,noheader,nounits", f"-lms={self.period_ms}",
-             "--id=0"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-            text=True)
-        self.thread = threading.Thread(target=self._read, daemon=True)
-        self.thread.start()
-        return self
-
-    def _read(self) -> None:
-        for line in self.proc.stdout:
-            try:
-                self.samples.append(float(line.strip()) / 100)
-            except ValueError:
-                pass
-
-    def __exit__(self, *exc):
-        self.proc.terminate()
-        self.proc.wait(timeout=30)
-        self.thread.join(timeout=30)
-
-    @property
-    def mean(self) -> Optional[float]:
-        return (sum(self.samples) / len(self.samples) if self.samples
-                else None)
 
 
 def run_config():
@@ -122,16 +82,10 @@ def run(genome, truth, out_dir: str, packed: bool = False):
     cfg, params = run_config()
     STAGE_TIMES.clear()
     COUNTERS.clear()
-    sampler = UtilizationSampler()
     t0 = time.perf_counter()
+    result = run_pipeline(genome, cfg, out_dir=out_dir, coarse_params=params)
     if on_card:
-        with sampler:
-            result = run_pipeline(genome, cfg, out_dir=out_dir,
-                                  coarse_params=params)
-            torch.cuda.synchronize()
-    else:
-        result = run_pipeline(genome, cfg, out_dir=out_dir,
-                              coarse_params=params)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     length_mbp = genome.size / 1e6
     rec = {
@@ -147,8 +101,6 @@ def run(genome, truth, out_dir: str, packed: bool = False):
             resource.RUSAGE_SELF).ru_maxrss / 2**20,
         "peak_device_gb": (torch.cuda.max_memory_allocated(dev) / 2**30
                            if on_card else None),
-        "device_busy_sampled": sampler.mean,
-        "busy_samples": len(sampler.samples),
         "host_packed": packed,
         "compile_s": compile_s,
         "chunks": {k: COUNTERS.get(k, 0) for k in CHUNK_COUNTERS},
