@@ -2056,11 +2056,13 @@ def hard_phase() -> dict:
     cfg, params = pan_run.pan_config()
     out = os.path.join("smoke_out", "hard")
     shutil.rmtree(out, ignore_errors=True)
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_pipeline(genome, cfg, out_dir=out, coarse_params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
     acc = pan_run.accuracy_metrics(genome, res, truth, cfg)
     rec = {k: HARD_RECORDED[k] for k in ("TP", "FP", "FN", "F1")}
     same = {k: acc[k] == v for k, v in rec.items()}
@@ -2076,7 +2078,8 @@ def hard_phase() -> dict:
         acc["BM_RM2"]
     ref = check_reference("hard8", contigs, out)
     return dict(wall_s=wall, accuracy=acc, equal_to_record=same,
-                library=len(res.libs["merged"]), reference=ref)
+                library=len(res.libs["merged"]), reference=ref,
+                launches=launches)
 
 
 # BENCH_r05.json "hard_accuracy": the JAX package's hard 8 Mbp result
@@ -2619,6 +2622,239 @@ def clock_phase() -> dict:
     return rec
 
 
+# ------------------------------------------------------------- libjoin_fill
+# the chunked copy join's shapes: a 2^24 bp chunk (2^25 two-strand genome
+# k-mers and the candidates', K = 33 slices of 2^20, fill_w 8, max_occ
+# 1024) at the first and the retried slice quota; and the tier-1 test's
+# (tests/test_torch_ops.py: 16,384 bp, 2,048 candidate bases, max_occ 3)
+LIBJOIN_CELL = [("cell_q19", 1 << 24, 1 << 20, 1 << 19, 8, 1024),
+                ("cell_q20", 1 << 24, 1 << 20, 1 << 20, 8, 1024)]
+LIBJOIN_TIER1 = [("tier1_s20", 1 << 20, 1 << 19, 8),
+                 ("tier1_s4096", 4096, 64, 4), ("tier1_s8192", 8192, 512, 1),
+                 ("tier1_edges", 256, 16, 4)]
+
+
+def libjoin_chunk_inputs(L, seed=5, n_fam=2, copies=400, fam_len=5000):
+    """(genome codes [L], candidate codes, candidate ids) of one chunk:
+    a random background with `n_fam` families of `copies` copies each (2%
+    substitutions, either strand), a poly-A stretch and a tandem array;
+    the candidates are four copies of each family (one wave's group), the
+    poly-A and tandem pieces and 20 unique 2 kbp pieces, joined with one N
+    as `CopyFinder` joins them."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, L).astype(np.uint8)
+    cands = []
+    for f in range(n_fam):
+        te = rng.integers(0, 4, fam_len).astype(np.uint8)
+        starts = rng.choice(L // fam_len - 1, copies, replace=False) * fam_len
+        for i, s0 in enumerate(starts):
+            c = te.copy()
+            m = rng.random(fam_len) < 0.02
+            c[m] = (c[m] + rng.integers(1, 4, m.sum())) % 4
+            g[s0 : s0 + fam_len] = c if i % 2 else (3 - c)[::-1]
+            if i < 4:
+                cands.append(c)
+    g[1000:3000] = 0
+    g[5000:8000] = np.tile(rng.integers(0, 4, 6).astype(np.uint8), 500)
+    cands += [g[900:3100].copy(), g[4900:8100].copy()]
+    for s0 in rng.integers(10_000, L - 3000, 20):
+        cands.append(g[s0 : s0 + 2000].copy())
+    lens = np.array([len(c) for c in cands])
+    P = max(1024, 1 << int(lens.sum() + len(cands)).bit_length())
+    flat = np.full(P, 4, np.uint8)
+    cid = np.zeros(P, np.int32)
+    o = 0
+    for i, c in enumerate(cands):
+        flat[o : o + len(c)] = c
+        cid[o : o + len(c)] = i
+        o += len(c) + 1
+    return g, flat, cid
+
+
+def libjoin_tier1_inputs(edges=False):
+    """The tier-1 test's shapes: 16,384 bp with planted repeats, an N
+    block and a tandem array, 384 N, and 2,048 candidate bases (with a
+    poly-A stretch and candidate for the edge case)."""
+    rng = np.random.default_rng(13)
+    g = rng.integers(0, 4, 16_000).astype(np.uint8)
+    rep = rng.integers(0, 4, 400).astype(np.uint8)
+    for i in range(6):
+        c = rep if i % 2 == 0 else (3 - rep)[::-1]
+        g[500 + i * 2500 : 900 + i * 2500] = c
+    g[3000:3100] = 4
+    g[7000:7300] = np.tile(rng.integers(0, 4, 6).astype(np.uint8), 50)
+    g = np.concatenate([g, np.full(384, 4, np.uint8)])
+    cands = [g[500:900], g[5000:5300], rng.integers(0, 4, 250).astype(
+        np.uint8), g[500:880]]
+    if edges:
+        g[12_000:12_100] = 0
+        cands.append(g[11_950:12_150].copy())
+    flat = np.full(2048, 4, np.uint8)
+    cid = np.zeros(2048, np.int32)
+    o = 0
+    for i, c in enumerate(cands):
+        flat[o : o + len(c)] = c
+        cid[o : o + len(c)] = i
+        o += len(c) + 1
+    return g, flat, cid
+
+
+def libjoin_fill_device_ms(fn):
+    """(summed device ms of the libjoin_fill kernels' launches in `fn`,
+    {pass: ms}), from torch.profiler; (None, {}) if it saw none."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = {("count" if "fill_count" in e.key else "write"):
+              e.self_device_time_total / 1e3 for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "libjoin_fill" in e.key}
+        if ev:
+            return sum(ev.values()), ev
+    return None, {}
+
+
+def check_libjoin_fill(label, g, flat, cid, slice_size, quota, fill_w,
+                       max_occ, reps):
+    """The kernel against the plain version on one chunk, both on the
+    card: all five outputs of `libjoin_pairs` (the fills through
+    `_finish`) exactly equal; kernel ms (profiler device time of both
+    passes, events beside it), plain ms (events) and the bound (the
+    sorted keys read once and the outputs written once at the card's
+    bandwidth), each a chunk."""
+    from hite_tpu_torch.ops import libjoin
+
+    dev = "cuda"
+    skey, cids, K, S = libjoin._joint_sort(
+        torch.from_numpy(g).to(dev), torch.from_numpy(flat).to(dev),
+        torch.from_numpy(cid).to(dev), k=12, slice_size=slice_size)
+    quotas = libjoin._quotas(quota, fill_w, S)
+    fkw = dict(K=K, S=S, fill_w=fill_w, max_occ=max_occ, quotas=quotas)
+    before = kernels.LAUNCHES["libjoin_fill"]
+    got = libjoin._finish(*libjoin.libjoin_fill(skey, cids, **fkw), 32)
+    plain = libjoin.libjoin_fill_plain(skey, cids, **fkw)
+    ref = libjoin._finish(*plain, 32)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["libjoin_fill"] == before + 1, label
+    for name, a, b in zip(("cand", "dbin", "qpos", "spos", "counts"),
+                          got, ref):
+        assert torch.equal(a, b), f"libjoin_fill {label}: {name} differs"
+    # the same chunk through libjoin_pairs itself
+    whole = libjoin.libjoin_pairs(
+        torch.from_numpy(g).to(dev), torch.from_numpy(flat).to(dev),
+        torch.from_numpy(cid).to(dev), k=12, diag_band=32, fill_w=fill_w,
+        max_occ=max_occ, slice_size=slice_size, slice_quota=quota)
+    assert all(torch.equal(a, b) for a, b in zip(whole, ref)), label
+    n_total, n_emit = (int(x) for x in ref[4].cpu())
+    over = int((torch.stack(plain[1])
+                > torch.tensor(quotas, device=dev)[:, None]).sum())
+    run = lambda: libjoin.libjoin_fill(skey, cids, **fkw)  # noqa: E731
+    call_ms = cuda_ms(run, reps)
+    dev_ms, passes = libjoin_fill_device_ms(run)
+    plain_ms = cuda_ms(lambda: libjoin.libjoin_fill_plain(skey, cids, **fkw),
+                       max(1, reps // 4))
+    nbytes = 8 * skey.shape[0] + 3 * 4 * K * sum(quotas) + 2 * 4 * fill_w * K
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    row = dict(label=label, n=int(skey.shape[0]), K=K, S=S, fill_w=fill_w,
+               quota=quota, max_occ=max_occ, pairs=n_total, emitted=n_emit,
+               slices_over_quota=over, ms=dev_ms or call_ms,
+               device_ms=dev_ms, passes_ms=passes, call_ms=call_ms,
+               plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by="bytes", max_abs_err=0)
+    print(f"libjoin_fill {label}: n {row['n']} K {K} S {S} fill_w {fill_w} "
+          f"quota {quota}: five outputs equal the plain version's; pairs "
+          f"{n_total} emitted {n_emit} ((slice, fill)s over quota {over}); "
+          f"kernel {row['ms']:.4f} ms ({'device' if dev_ms else 'events'}; "
+          f"passes {passes}; events {call_ms:.4f})  plain {plain_ms:.3f} ms"
+          "  bound "
+          f"{bound_ms:.4f} ms ({row['ms'] / bound_ms:.1f}x)", flush=True)
+    return row
+
+
+def libjoin_fill_phase() -> dict:
+    """csrc/libjoin.cu at the chunked copy join's shapes and the tier-1
+    test's, exactly equal to the plain version, timed; fill_w above the
+    kernel's 8 raises."""
+    from hite_tpu_torch.ops import libjoin
+
+    g, flat, cid = libjoin_chunk_inputs(1 << 24)
+    rows = [check_libjoin_fill(label, g, flat, cid, ss, q, fw, mo, 20)
+            for label, _L, ss, q, fw, mo in LIBJOIN_CELL]
+    assert all(r["K"] == 33 and r["S"] == 1 << 20 for r in rows), rows
+    assert rows[0]["slices_over_quota"] > 0, rows[0]
+    del g, flat, cid
+    for label, ss, q, fw in LIBJOIN_TIER1:
+        g, flat, cid = libjoin_tier1_inputs(edges=label.endswith("edges"))
+        rows.append(check_libjoin_fill(label, g, flat, cid, ss, q, fw, 3,
+                                       50))
+    key = torch.zeros(4, dtype=torch.int64, device="cuda")
+    try:
+        libjoin.libjoin_fill(key, torch.zeros(1, dtype=torch.int32,
+                                              device="cuda"),
+                             K=1, S=4, fill_w=9, max_occ=3, quotas=[1] * 9)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("libjoin_fill took fill_w 9")
+    return {"rows": rows}
+
+
+def chunked_join_phase() -> dict:
+    """The forced-chunked CopyFinder of tests/test_torch_tir_path.py::
+    test_chunked_libjoin on the card (max_libjoin_bp = the padded genome /
+    2, so 3 overlapping chunks through libjoin_pairs and its kernel): the
+    hits equal the JAX package's committed ones
+    (`data/reference/chunked_join.json`) on every substrate."""
+    from hite_tpu_torch.config import AlignConfig
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.pipeline import run as run_m
+    from hite_tpu_torch.pipeline.coarse import CoarseParams
+    from hite_tpu_torch.pipeline.copies import CopyFinder, GenomeIndex
+    from hite_tpu_torch.scripts import pan_run, reference
+
+    subs = reference.load("chunked_join")["substrates"]
+    bg = pan_run.parity_genome_codes()
+    bench, _t = pan_run.build_bench_genome(2_000_000, device="cpu")
+    contigs = {"parity_160k": {"chr1": bg},
+               "two_contigs": {"chrA": bg[:85_000], "chrB": bg[85_000:]},
+               "bench_2mbp": {"chr1": np.asarray(bench.flat[: bench.size])}}
+    out = {}
+    kernels.reset_launches()
+    for name, sub in subs.items():
+        c = contigs[name]
+        assert reference.codes_sha256(c) == sub["input_sha256"], name
+        g = Genome.from_dict(c, device="cuda")
+        g.init_mask()
+        run_m._mask_tandem_regions(g)
+        cfg = AlignConfig(**sub["align"])
+        gindex = GenomeIndex(g, cfg, seg_len=CoarseParams(
+            **sub["coarse"]).seg_len)
+        Lp = int(g.device_flat_padded()[0].shape[0])
+        assert Lp == sub["lp"], (name, Lp)
+        finder = CopyFinder(gindex)
+        finder.max_libjoin_bp = Lp // 2
+        seqs = [np.frombuffer(q.encode(), np.uint8) for q in sub["seqs"]]
+        lut = np.full(256, 4, np.uint8)
+        lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+        seqs = [lut[q] for q in seqs]
+        for m, want in sub["hits"].items():
+            hits = [[[h.start, h.end, h.strand, h.nseeds] for h in s]
+                    for s in finder.find_copies(seqs, min_coverage=0.9,
+                                                max_copies=100,
+                                                min_abs_len=int(m))]
+            assert hits == want, f"chunked join {name} min_abs_len {m}"
+            out[f"{name}/{m}"] = sum(map(len, hits))
+    launches = kernels.LAUNCHES["libjoin_fill"]
+    print(f"chunked join: the forced-chunked CopyFinder's hits equal the "
+          f"JAX package's on {len(out)} (substrate, mode)s {out}; "
+          f"libjoin_fill launches {launches}", flush=True)
+    assert launches > 0, "the chunked join never launched libjoin_fill"
+    return {"hits": out, "launches": launches}
+
+
 class Laps:
     """Prints, and keeps in the report, each phase's seconds since the
     previous mark (the script's time budget by phase)."""
@@ -2683,6 +2919,11 @@ def main() -> int:
     lap("build")
     report["clock"] = clock_phase()
     lap("clock")
+    # ---- the copy join's fill kernel against the plain version, and the
+    # forced-chunked CopyFinder held to the JAX package's hits
+    report["libjoin_fill"] = libjoin_fill_phase()
+    report["chunked_join"] = chunked_join_phase()
+    lap("libjoin_fill and the chunked join")
     # ---- SW kernel vs plain, listed shapes, borders and forced variants
     rows = []
     for i, (label, B, La, Lb, nf) in enumerate(SW_SHAPES):
@@ -3068,6 +3309,31 @@ def main() -> int:
             entry.update(bound_padded_ms=wavg("bound_padded_ms"),
                          real_cell_share=wavg("real_share"))
         entries.append(entry)
+    # libjoin_fill at the copy join's chunk (its main-path shape): the
+    # indexed join (genomes padded to <= 2^24) never launches it
+    cell = report["libjoin_fill"]["rows"][0]
+    by_path = {"main": launches["libjoin_fill"],
+               "pan": pan["launches"]["libjoin_fill"],
+               "scale": scale["launches"]["libjoin_fill"],
+               "train": train["launches"]["libjoin_fill"],
+               "mesh": mesh["launches"]["libjoin_fill"],
+               "domain_library": dlib["launches"]["libjoin_fill"],
+               "diverged": diverged["launches"]["libjoin_fill"],
+               "hard": report["hard"]["launches"]["libjoin_fill"],
+               "chunked_join": report["chunked_join"]["launches"]}
+    print(f"libjoin_fill launches by path: {by_path}")
+    assert by_path["scale"] > 0, "the scale run never launched libjoin_fill"
+    assert by_path["main"] == by_path["hard"] == by_path["diverged"] == 0, \
+        by_path
+    entries.append({
+        "name": "libjoin_fill", "route": "cuda",
+        "source": "hite_tpu_torch/csrc/libjoin.cu",
+        "replaces": "hite_tpu/ops/libjoin.py:libjoin_pairs (XLA cummax "
+                    "fills; no Pallas kernel)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": 0, "ms": cell["ms"], "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+        "library_ms": None, "shape": cell["label"]})
     kline = {"kernels": entries}
     report["kernel_line"] = kline
     os.makedirs("smoke_out", exist_ok=True)

@@ -27,10 +27,11 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> launches since the last reset_launches(), and the input
 # shapes they were launched at (shape tuple -> launches)
-LAUNCHES: Dict[str, int] = {"sw": 0, "sw_protein": 0}
-LAUNCH_SHAPES: Dict[str, Dict[tuple, int]] = {"sw": {}, "sw_protein": {}}
+LAUNCHES: Dict[str, int] = {"sw": 0, "sw_protein": 0, "libjoin_fill": 0}
+LAUNCH_SHAPES: Dict[str, Dict[tuple, int]] = {k: {} for k in LAUNCHES}
 
-_CUDA_SOURCES = {"sw": os.path.join(_PKG, "csrc", "sw.cu")}
+_CUDA_SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+                 for name in ("sw", "libjoin")}
 HOST_SOURCES = {name: os.path.join(_PKG, "native", f"{name}.cc")
                  for name in ("chain", "fasta")}
 

@@ -5,7 +5,9 @@ Copy retrieval as ONE global join per call:
    candidate k-mers (candidates concatenated, one N separator) share one
    code-sorted stream, candidate entries first within each run;
 2. every genome entry pairs with its run's last `fill_w` candidate entries
-   (`libjoin_pairs`: chained cummax forward fills; `libjoin_pairs_indexed`:
+   (`libjoin_pairs`: forward fills within each slice, `csrc/libjoin.cu`'s
+   kernel on the card and chained cummax fills in the plain version
+   `libjoin_fill_plain`; `libjoin_pairs_indexed`:
    a `searchsorted` into the separately sorted candidate k-mers against a
    genome stream sorted once per genome by `libjoin_genome_sorted`); runs
    past `max_occ` genome occurrences stop pairing;
@@ -19,12 +21,19 @@ drive the caller's quota retries are identical.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from hite_tpu_torch import kernels
 from hite_tpu_torch.ops.encode import kmer_codes
 from hite_tpu_torch.ops.selfjoin import (
     INT32_MAX, compact, pack2, shift1, slices, stable_order, two_strand_codes,
 )
+from hite_tpu_torch.utils.log import count
+
+FILL_MAX_W = 8       # fills the libjoin_fill kernel takes (csrc/libjoin.cu)
 
 
 def _pow2_ceil(n: int) -> int:
@@ -66,14 +75,11 @@ def _finish(parts, counts, emits, diag_band):
             torch.stack([n_total, n_emit]))
 
 
-def libjoin_pairs(flat: torch.Tensor, cand_flat: torch.Tensor,
-                  cand_id: torch.Tensor, *, k: int, diag_band: int = 32,
-                  fill_w: int = 2, max_occ: int = 1024,
-                  slice_size: int = 1 << 20, slice_quota: int = 1 << 19):
-    """Stage 1 on a genome chunk: joint sort + forward-fill pairing.
-
-    Returns (s_cand, s_dbin, s_qpos, s_spos, counts int32 [2] = (total
-    real pairs, pairs emitted under the per-slice quotas))."""
+def _joint_sort(flat: torch.Tensor, cand_flat: torch.Tensor,
+                cand_id: torch.Tensor, *, k: int, slice_size: int):
+    """The genome chunk's two-strand k-mers and the candidates' k-mers in
+    one sorted stream: (sorted int64 keys (code << 32) | (tag << 31) |
+    pos, the candidate k-mers' ids int32, K, S)."""
     L = flat.shape[-1]
     dev = flat.device
     g_codes = two_strand_codes(flat, k)                          # [2L]
@@ -84,22 +90,33 @@ def libjoin_pairs(flat: torch.Tensor, cand_flat: torch.Tensor,
     code = torch.cat([g_codes, torch.where(ck < 0, INT32_MAX, ck)])
     tag = torch.cat([torch.ones(2 * L, dtype=torch.int32, device=dev),
                      torch.zeros(Pk, dtype=torch.int32, device=dev)])
-    gid = torch.cat([torch.full((2 * L,), -1, dtype=torch.int32, device=dev),
-                     cid])
     pos = torch.cat([torch.arange(2 * L, dtype=torch.int32, device=dev),
                      torch.arange(Pk, dtype=torch.int32, device=dev)])
     # (code, tag, pos) is unique: one int64 key, candidates first in a run
     key = (code.to(torch.int64) << 32) | (tag.to(torch.int64) << 31) | pos
-    order = torch.sort(key, stable=True).indices
-    code, tag, pos, gid = code[order], tag[order], pos[order], gid[order]
-
+    skey = torch.sort(key, stable=True).values
     S = min(slice_size, _pow2_ceil(n))
-    K = -(-n // S)
+    return skey, cid.contiguous(), -(-n // S), S
+
+
+def libjoin_fill_plain(skey: torch.Tensor, cid: torch.Tensor, *, K: int,
+                       S: int, fill_w: int, max_occ: int, quotas):
+    """Pair every genome entry of the sorted stream, cut into [K, S]
+    slices, with its run's last `fill_w` candidate entries within the
+    slice (chained cummax forward fills), runs past `max_occ` genome
+    entries stopping; each fill compacted under its per-slice quota.
+    Returns (parts [(cand, qpos, spos) int32 [K, q_w] a fill], counts
+    [int32 [K] a fill], emitted [int32 [K] a fill])."""
+    dev = skey.device
+    code = (skey >> 32).to(torch.int32)
+    tag = ((skey >> 31) & 1).to(torch.int32)
+    pos = (skey & 0x7FFFFFFF).to(torch.int32)
+    gid = torch.where(tag == 0, cid[torch.where(tag == 0, pos, 0).long()],
+                      -1)
     code = slices(code, K, S, INT32_MAX)
     tag = slices(tag, K, S, 1)
     pos = slices(pos, K, S, 0)
     gid = slices(gid, K, S, -1)
-    quotas = _quotas(slice_quota, fill_w, S)
 
     idx = torch.arange(S, dtype=torch.int32, device=dev).expand(K, S)
     is_cand = (tag == 0) & (code != INT32_MAX)
@@ -118,6 +135,91 @@ def libjoin_pairs(flat: torch.Tensor, cand_flat: torch.Tensor,
         parts.append(out)
         counts.append(cw)
         emits.append(ew)
+    return parts, counts, emits
+
+
+@functools.lru_cache(maxsize=None)
+def _fill_lib() -> ctypes.CDLL:
+    """The loaded `csrc/libjoin.cu` library with its argtypes, resolved
+    once."""
+    lib = kernels.load("libjoin")
+    lib.libjoin_fill_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 7)
+    lib.libjoin_fill_launch.restype = ctypes.c_int
+    lib.libjoin_fill_tiles.argtypes = [ctypes.c_int]
+    lib.libjoin_fill_tiles.restype = ctypes.c_int
+    lib.libjoin_fill_error_string.argtypes = [ctypes.c_int]
+    lib.libjoin_fill_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _fill_cuda(skey: torch.Tensor, cid: torch.Tensor, *, K: int, S: int,
+               fill_w: int, max_occ: int, quotas):
+    """`libjoin_fill_plain` as `csrc/libjoin.cu`'s two passes on the
+    current stream (no synchronise); the fills' columns are views of one
+    [3, K, sum(quotas)] output."""
+    if not 1 <= fill_w <= FILL_MAX_W:
+        raise ValueError(f"the libjoin_fill kernel takes fill_w 1 to "
+                         f"{FILL_MAX_W}, got {fill_w}")
+    if (skey.dtype != torch.int64 or cid.dtype != torch.int32
+            or not skey.is_contiguous() or not cid.is_contiguous()
+            or cid.device != skey.device or skey.dim() != 1):
+        raise ValueError("libjoin_fill takes contiguous int64 keys [n] and "
+                         "int32 candidate ids on one device")
+    dev = skey.device
+    quotas = [int(q) for q in quotas]
+    lib = _fill_lib()
+    tiles = lib.libjoin_fill_tiles(S)
+    scratch = torch.empty(K * tiles * FILL_MAX_W, dtype=torch.int32,
+                          device=dev)
+    out = torch.empty((3, K, sum(quotas)), dtype=torch.int32, device=dev)
+    cnt = torch.empty((2, fill_w, K), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.libjoin_fill_launch(
+            skey.data_ptr(), cid.data_ptr(), skey.shape[0], K, S, fill_w,
+            max_occ, (ctypes.c_int * fill_w)(*quotas), scratch.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            cnt[0].data_ptr(), cnt[1].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("libjoin_fill kernel launch failed: "
+                           + lib.libjoin_fill_error_string(rc).decode())
+    kernels.count_launch("libjoin_fill", (K, S, fill_w))
+    count("libjoin.fill_chunks")
+    parts, o = [], 0
+    for q in quotas:
+        parts.append(tuple(out[i, :, o : o + q] for i in range(3)))
+        o += q
+    return parts, list(cnt[0].unbind(0)), list(cnt[1].unbind(0))
+
+
+def libjoin_fill(skey: torch.Tensor, cid: torch.Tensor, *, K: int, S: int,
+                 fill_w: int, max_occ: int, quotas):
+    """The fills and compactions of `libjoin_pairs`: the CUDA kernel for
+    CUDA tensors (fill_w 1 to 8), the plain version for CPU tensors;
+    anything else raises."""
+    kw = dict(K=K, S=S, fill_w=fill_w, max_occ=max_occ, quotas=quotas)
+    if skey.device.type == "cpu":
+        return libjoin_fill_plain(skey, cid, **kw)
+    if skey.is_cuda:
+        return _fill_cuda(skey, cid, **kw)
+    raise ValueError(f"libjoin_fill: no path for device {skey.device}")
+
+
+def libjoin_pairs(flat: torch.Tensor, cand_flat: torch.Tensor,
+                  cand_id: torch.Tensor, *, k: int, diag_band: int = 32,
+                  fill_w: int = 2, max_occ: int = 1024,
+                  slice_size: int = 1 << 20, slice_quota: int = 1 << 19):
+    """Stage 1 on a genome chunk: joint sort + forward-fill pairing.
+
+    Returns (s_cand, s_dbin, s_qpos, s_spos, counts int32 [2] = (total
+    real pairs, pairs emitted under the per-slice quotas))."""
+    skey, cid, K, S = _joint_sort(flat, cand_flat, cand_id, k=k,
+                                  slice_size=slice_size)
+    parts, counts, emits = libjoin_fill(
+        skey, cid, K=K, S=S, fill_w=fill_w, max_occ=max_occ,
+        quotas=_quotas(slice_quota, fill_w, S))
     return _finish(parts, counts, emits, diag_band)
 
 

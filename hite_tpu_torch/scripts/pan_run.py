@@ -387,6 +387,42 @@ def build_bench_genome(length: int = 8_000_000, scale: int = 1,
     return Genome.from_dict({"chr1": bg}, device=device), truth
 
 
+def parity_genome_codes() -> np.ndarray:
+    """The 160 kbp parity genome of the tests (`__graft_entry__.
+    pipeline_parity`, seed 23): TIR, SINE and LTR families on a random
+    background."""
+    rng = np.random.default_rng(23)
+    bg = rng.integers(0, 4, 160_000).astype(np.uint8)
+
+    def plant(te, starts, tsd=0):
+        for pos in starts:
+            copy = te.copy()
+            muts = rng.random(len(copy)) < 0.01
+            copy[muts] = (copy[muts] + rng.integers(1, 4, muts.sum())) % 4
+            if tsd:
+                t = rng.integers(0, 4, tsd).astype(np.uint8)
+                bg[pos - tsd : pos] = t
+                bg[pos + len(copy) : pos + len(copy) + tsd] = t
+            bg[pos : pos + len(copy)] = copy
+
+    t = rng.integers(0, 4, 20).astype(np.uint8)
+    while t[0] == 3 and t[1] == 2:
+        t = rng.integers(0, 4, 20).astype(np.uint8)
+    tir_te = np.concatenate([t, rng.integers(0, 4, 360).astype(np.uint8),
+                             (3 - t)[::-1]])
+    plant(tir_te, [10_000, 30_000, 50_000, 70_000, 90_000, 110_000], tsd=5)
+    sine_te = np.concatenate([rng.integers(0, 4, 280).astype(np.uint8),
+                              np.zeros(14, np.uint8)])
+    plant(sine_te, [20_000, 40_000, 60_000, 80_000, 100_000, 120_000],
+          tsd=12)
+    lt = rng.integers(0, 4, 250).astype(np.uint8)
+    lt[0], lt[1], lt[-2], lt[-1] = 3, 2, 1, 0
+    ltr_te = np.concatenate([lt, rng.integers(0, 4, 1500).astype(np.uint8),
+                             lt])
+    plant(ltr_te, [130_000, 140_000, 150_000], tsd=5)
+    return bg
+
+
 # the small genomes' CoarseParams (the 160 kbp parity genome's): a 32 kbp
 # segment, and a 128 kbp cap that chunks the self-join
 SMALL_COARSE = dict(seg_len=32_768, pair_batch=16, stride=4, max_hits=4,

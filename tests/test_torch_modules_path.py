@@ -307,7 +307,8 @@ def test_library_stage(stages):
     labels = {n.partition("#")[2].split("/")[0] for n in tl["merged"]}
     want = {"DNA", "SINE", "LTR"} | ({"RC"} if name == "bench_2mbp" else set())
     assert want <= labels
-    assert launches == {"sw": 0, "sw_protein": 0}   # CPU: plain versions
+    assert launches == {"sw": 0, "sw_protein": 0,
+                        "libjoin_fill": 0}     # CPU: plain versions
 
 
 def test_annotation(stages):

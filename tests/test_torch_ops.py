@@ -186,9 +186,10 @@ def test_kmer_index_and_lookup():
 
 
 # ---------------------------------------------------------------- libjoin
-def _cands(g, rng):
+def _cands(g, rng, extra=()):
     seqs = [g[500:900].copy(), g[5000:5300].copy(),
-            rng.integers(0, 4, 250).astype(np.uint8), g[500:880].copy()]
+            rng.integers(0, 4, 250).astype(np.uint8), g[500:880].copy(),
+            *extra]
     lens = np.array([len(s) for s in seqs])
     starts = np.concatenate([[0], np.cumsum(lens[:-1] + 1)])
     P = 2048
@@ -200,22 +201,63 @@ def _cands(g, rng):
     return flat, cid
 
 
-@pytest.mark.parametrize(
-    "slice_size,quota,fill_w",
-    [(1 << 20, 1 << 19, 8), (4096, 64, 4), (8192, 512, 1)])
-def test_libjoin_pairs_and_scan(slice_size, quota, fill_w):
+def _libjoin_inputs(edges: bool):
     rng = np.random.default_rng(13)
     g = np.concatenate([repeat_genome(6, L=16_000),
                         np.full(384, 4, np.uint8)])
-    cf, cid = _cands(g, rng)
+    extra = ()
+    if edges:
+        g[12_000:12_100] = 0
+        extra = (g[11_950:12_150].copy(),)
+    cf, cid = _cands(g, rng, extra)
+    return g, cf, cid
+
+
+# slices of 256 under a quota of 16: a poly-A stretch in the genome and in
+# a fifth candidate puts one code's run at the stream's head, its candidate
+# entries across the first slice edge
+EDGES = (256, 16, 4)
+
+
+def _edge_conditions(g, cf, cid, got, fill_w, max_occ, slice_size):
+    """The edge case's four conditions, read off the sorted stream."""
+    skey, _cid, K, S = tl._joint_sort(T(g), T(cf), T(cid), k=12,
+                                      slice_size=slice_size)
+    code = (skey >> 32).numpy()
+    cand = (((skey >> 31) & 1) == 0).numpy() & (code != ts.INT32_MAX)
+    gen = ~cand & (code != ts.INT32_MAX)
+    edge = np.arange(S, len(code), S)
+    straddle = (cand[edge - 1] & cand[edge] & (code[edge - 1] == code[edge]))
+    n_cand = np.bincount(np.unique(code[cand], return_inverse=True)[1])
+    n_gen = np.bincount(np.unique(code[gen], return_inverse=True)[1])
+    return {"straddle": bool(straddle.any()),
+            "cands_past_fill_w": int(n_cand.max()) > fill_w,
+            "genome_run_past_max_occ": int(n_gen.max()) > max_occ,
+            "quota_exceeded": int(got[4][0]) > int(got[4][1])}
+
+
+@pytest.mark.parametrize(
+    "slice_size,quota,fill_w",
+    [(1 << 20, 1 << 19, 8), (4096, 64, 4), (8192, 512, 1),
+     pytest.param(*EDGES, id="edges")])
+def test_libjoin_pairs_and_scan(slice_size, quota, fill_w):
+    from hite_tpu_torch import kernels
+
+    edges = (slice_size, quota, fill_w) == EDGES
+    g, cf, cid = _libjoin_inputs(edges)
     kw = dict(k=12, diag_band=32, fill_w=fill_w, max_occ=3,
               slice_size=slice_size, slice_quota=quota)
     ref = jl.libjoin_pairs(jnp.asarray(g), jnp.asarray(cf), jnp.asarray(cid),
                            **kw)
+    kernels.reset_launches()
     got = tl.libjoin_pairs(T(g), T(cf), T(cid), **kw)
+    assert kernels.LAUNCHES["libjoin_fill"] == 0    # CPU: the plain version
     for name, r, t in zip(("cand", "dbin", "qpos", "spos", "counts"),
                           ref, got):
         eq(r, t, name)
+    if edges:
+        cond = _edge_conditions(g, cf, cid, got, fill_w, 3, slice_size)
+        assert all(cond.values()), cond
     gs_r = jl.libjoin_genome_sorted(jnp.asarray(g), k=12)
     gs_t = tl.libjoin_genome_sorted(T(g), k=12)
     for name, r, t in zip(("code", "pos", "ord"), gs_r, gs_t):
@@ -232,6 +274,146 @@ def test_libjoin_pairs_and_scan(slice_size, quota, fill_w):
                    max_hsps=512, max_seed_pairs=budget, budget_slices=slices)
         eq(jl.libjoin_scan_packed(*ref_i[:4], **skw),
            tl.libjoin_scan_packed(*got_i[:4], **skw), f"scan K={slices}")
+
+
+def _bit_length(x):
+    """Index of the highest set bit + 1 of each uint32 (0 for 0)."""
+    x = np.asarray(x, np.int64)
+    return np.where(x > 0, np.floor(np.log2(np.maximum(x, 1))) + 1,
+                    0).astype(np.int64)
+
+
+def _fill_kernel_model(skey, cid, K, S, fill_w, max_occ, quotas, threads,
+                       rows):
+    """csrc/libjoin.cu's two passes in NumPy with `threads` threads a
+    block and `rows` rows of 32 lanes a warp: the look-back, the
+    row ballots (bit masks) with their highest-bit lookups, the carries
+    from row to row, warp to warp and tile to tile, the ranks by ballot
+    popcount, the writes under the quotas and each tile's share of the
+    padding columns.  Asserts every output column is written once."""
+    BIG = ts.INT32_MAX
+    key = skey.numpy().astype(np.int64)
+    cids = cid.numpy()
+    n = len(key)
+    warps, span = threads // 32, 32 * rows
+    tile_n = threads * rows
+    nt = -(-S // tile_n)
+    q = [int(x) for x in quotas] + [0] * (8 - fill_w)
+    qoff = np.concatenate([[0], np.cumsum(q)[:-1]])
+    qt = sum(q)
+    pad_key = (BIG << 32) | (1 << 31)
+    lanes = np.arange(32)
+
+    def load(k, j):
+        g = k * S + np.asarray(j)
+        ok = (np.asarray(j) < S) & (g < n)
+        return np.where(ok, key[np.clip(g, 0, n - 1)], pad_key)
+
+    def cand_of(kk):
+        return (((kk >> 31) & 1) == 0) & ((kk >> 32) != BIG)
+
+    def tile(k, t):
+        t0 = t * tile_n
+        j = np.arange(max(0, t0 - max_occ), t0)             # the look-back
+        hit = cand_of(load(k, j))
+        carry = int(j[hit].max()) if hit.any() else -1
+        rowbase = (t0 + np.arange(warps)[:, None] * span
+                   + np.arange(rows)[None, :] * 32)          # [warps, rows]
+        j = rowbase[..., None] + lanes                      # [w, r, 32]
+        kk = load(k, j)
+        cand = cand_of(kk)
+        code = np.where(((kk >> 31) & 1) == 1, kk >> 32, BIG)
+        spos = kk & 0x7FFFFFFF
+        b = (cand.astype(np.int64) << lanes).sum(-1)        # row ballots
+        row_last = np.where(b > 0, rowbase + _bit_length(b) - 1, -1)
+        run = np.maximum.accumulate(
+            np.concatenate([np.full((warps, 1), -1), row_last[:, :-1]], 1),
+            axis=1)                                         # before the row
+        le = b[..., None] & (0xFFFFFFFF >> (31 - lanes))
+        p = np.where(le > 0, rowbase[..., None] + _bit_length(le) - 1,
+                     run[..., None])
+        last = row_last.max(1)                              # each warp's run
+        wcarry = np.maximum(carry, np.maximum.accumulate(
+            np.concatenate([[-1], last[:-1]])))
+        p = np.maximum(p, wcarry[:, None, None])
+        m = np.zeros_like(p)
+        cont = (code != BIG) & (p >= 0) & (j - p <= max_occ)
+        for w in range(fill_w):
+            cont &= (p - w >= 0) & (
+                (load(k, np.maximum(p - w, 0)) >> 32) == code)
+            m += cont
+        return m, p, spos
+
+    counts = np.zeros((K, nt, 8), np.int64)
+    for k in range(K):
+        for t in range(nt):
+            m, _p, _s = tile(k, t)
+            counts[k, t] = [(m > w).sum() for w in range(8)]
+    out = np.full((3, K, qt), -7, np.int64)
+    written = np.zeros((K, qt), np.int64)
+    for k in range(K):
+        tot = counts[k].sum(0)
+        for t in range(nt):
+            m, p, spos = tile(k, t)
+            wc = np.array([[(m[v] > w).sum() for w in range(8)]
+                           for v in range(warps)])
+            base = counts[k, :t].sum(0) + np.concatenate(
+                [np.zeros((1, 8), np.int64), np.cumsum(wc, 0)[:-1]])
+            for v in range(warps):
+                for r in range(rows):
+                    for w in range(8):
+                        bal = m[v, r] > w
+                        if not bal.any():
+                            break
+                        rank = base[v, w] + np.cumsum(bal) - bal
+                        sel = bal & (rank < q[w])
+                        qp = load(k, p[v, r, sel] - w) & 0x7FFFFFFF
+                        col = qoff[w] + rank[sel]
+                        out[:, k, col] = [cids[qp], qp, spos[v, r, sel]]
+                        written[k, col] += 1
+                        base[v, w] += bal.sum()
+            for w in range(fill_w):
+                lo = min(tot[w], q[w])
+                a = lo + (q[w] - lo) * t // nt
+                e = lo + (q[w] - lo) * (t + 1) // nt
+                out[:, k, qoff[w] + a : qoff[w] + e] = np.array(
+                    [BIG, BIG, 0])[:, None]
+                written[k, qoff[w] + a : qoff[w] + e] += 1
+    assert (written == 1).all(), "a column written twice or never"
+    tot = counts.sum(1)[:, :fill_w].T                       # [fill_w, K]
+    parts = [tuple(torch.from_numpy(out[i, :, qoff[w] : qoff[w] + q[w]]
+                                    .astype(np.int32)) for i in range(3))
+             for w in range(fill_w)]
+    cw = torch.from_numpy(tot.astype(np.int32))
+    ew = torch.from_numpy(np.minimum(tot, np.array(q[:fill_w])[:, None])
+                          .astype(np.int32))
+    return parts, list(cw), list(ew)
+
+
+@pytest.mark.parametrize("threads,rows", [(256, 8), (64, 2)])
+@pytest.mark.parametrize(
+    "slice_size,quota,fill_w",
+    [(1 << 20, 1 << 19, 8), (4096, 64, 4), pytest.param(*EDGES, id="edges")])
+def test_libjoin_fill_kernel_model(slice_size, quota, fill_w, threads, rows):
+    """The kernel's algorithm (`_fill_kernel_model`, at the kernel's block
+    geometry and at a small one that crosses tiles) equals the plain
+    version on every output, at the libjoin shapes, with the tests'
+    max_occ and one whose look-back spans several windows."""
+    g, cf, cid = _libjoin_inputs((slice_size, quota, fill_w) == EDGES)
+    skey, cids, K, S = tl._joint_sort(T(g), T(cf), T(cid), k=12,
+                                      slice_size=slice_size)
+    for max_occ in (3, 300):
+        fkw = dict(K=K, S=S, fill_w=fill_w, max_occ=max_occ,
+                   quotas=tl._quotas(quota, fill_w, S))
+        ref = tl.libjoin_fill_plain(skey, cids, **fkw)
+        got = _fill_kernel_model(skey, cids, **fkw, threads=threads,
+                                 rows=rows)
+        for w in range(fill_w):
+            for i, name in enumerate(("cand", "qpos", "spos")):
+                eq(ref[0][w][i].numpy(), got[0][w][i],
+                   f"max_occ {max_occ} fill {w} {name}")
+            eq(ref[1][w].numpy(), got[1][w], f"fill {w} count")
+            eq(ref[2][w].numpy(), got[2][w], f"fill {w} emitted")
 
 
 # -------------------------------------------------------------------- msa

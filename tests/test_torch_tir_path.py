@@ -60,37 +60,10 @@ SUBSTRATES = ("parity_160k", "two_contigs", "bench_2mbp")
 
 
 def _parity_genome() -> np.ndarray:
-    """The genome of `__graft_entry__.pipeline_parity` (seed 23)."""
-    rng = np.random.default_rng(23)
-    bg = rng.integers(0, 4, 160_000).astype(np.uint8)
+    """The 160 kbp parity genome (`pan_run.parity_genome_codes`)."""
+    from hite_tpu_torch.scripts import pan_run
 
-    def plant(te, starts, tsd=0):
-        for pos in starts:
-            copy = te.copy()
-            muts = rng.random(len(copy)) < 0.01
-            copy[muts] = (copy[muts] + rng.integers(1, 4, muts.sum())) % 4
-            if tsd:
-                t = rng.integers(0, 4, tsd).astype(np.uint8)
-                bg[pos - tsd : pos] = t
-                bg[pos + len(copy) : pos + len(copy) + tsd] = t
-            bg[pos : pos + len(copy)] = copy
-
-    t = rng.integers(0, 4, 20).astype(np.uint8)
-    while t[0] == 3 and t[1] == 2:
-        t = rng.integers(0, 4, 20).astype(np.uint8)
-    tir_te = np.concatenate([t, rng.integers(0, 4, 360).astype(np.uint8),
-                             (3 - t)[::-1]])
-    plant(tir_te, [10_000, 30_000, 50_000, 70_000, 90_000, 110_000], tsd=5)
-    sine_te = np.concatenate([rng.integers(0, 4, 280).astype(np.uint8),
-                              np.zeros(14, np.uint8)])
-    plant(sine_te, [20_000, 40_000, 60_000, 80_000, 100_000, 120_000],
-          tsd=12)
-    lt = rng.integers(0, 4, 250).astype(np.uint8)
-    lt[0], lt[1], lt[-2], lt[-1] = 3, 2, 1, 0
-    ltr_te = np.concatenate([lt, rng.integers(0, 4, 1500).astype(np.uint8),
-                             lt])
-    plant(ltr_te, [130_000, 140_000, 150_000], tsd=5)
-    return bg
+    return pan_run.parity_genome_codes()
 
 
 def _substrate(name):
@@ -297,27 +270,45 @@ def test_modules_stage_equals_replay(runs):
     _same_result(ref["result"], got["mods"]["tir"])
 
 
+def _chunked_hits(Finder, side, Lp, modes):
+    """{min_abs_len: hits} of `Finder` on the side's genome index and
+    candidates with `max_libjoin_bp` at Lp / 2 (3 overlapping chunks)."""
+    finder = Finder(side["gindex"])
+    finder.max_libjoin_bp = Lp // 2
+    return {m: _hits(finder.find_copies(side["seqs"], min_coverage=0.9,
+                                        max_copies=100, min_abs_len=m))
+            for m in modes}
+
+
+def _chunked_modes(name):
+    # fragment hits (the tight-diagonal second chaining pass) too, on the
+    # small genomes
+    return [0] if name == "bench_2mbp" else [0, 80]
+
+
 def test_chunked_libjoin(runs):
-    """CopyFinder past `max_libjoin_bp`: the chunked `libjoin_pairs` path."""
+    """CopyFinder past `max_libjoin_bp`: the chunked `libjoin_pairs` path,
+    equal in both packages and to the JAX package's committed hits
+    (`data/reference/chunked_join.json`, which `chip_smoke.py` holds the
+    card's chunked joins to)."""
     from hite_tpu.pipeline.copies import CopyFinder as JaxFinder
     from hite_tpu_torch.pipeline.copies import CopyFinder as TorchFinder
+    from hite_tpu_torch.scripts import reference
 
     name, ref, got = runs
     Lp = got["genome"].device_flat_padded()[0].shape[0]
-    # fragment hits (the tight-diagonal second chaining pass) too, on the
-    # small genome
-    modes = [0] if name == "bench_2mbp" else [0, 80]
-    out = {}
-    for Finder, side in ((JaxFinder, ref), (TorchFinder, got)):
-        finder = Finder(side["gindex"])
-        finder.max_libjoin_bp = Lp // 2      # 3 overlapping chunks
-        for m in modes:
-            out[side is got, m] = _hits(finder.find_copies(
-                side["seqs"], min_coverage=0.9, max_copies=100,
-                min_abs_len=m))
+    modes = _chunked_modes(name)
+    jax_hits = _chunked_hits(JaxFinder, ref, Lp, modes)
+    port_hits = _chunked_hits(TorchFinder, got, Lp, modes)
+    committed = reference.load("chunked_join")["substrates"][name]
     for m in modes:
-        assert out[False, m] == out[True, m]
-        assert sum(map(len, out[True, m])) > 0
+        assert jax_hits[m] == port_hits[m]
+        assert sum(map(len, port_hits[m])) > 0
+        assert [list(map(list, h)) for h in jax_hits[m]] == \
+            committed["hits"][str(m)]
+    assert committed["lp"] == Lp
+    assert committed["seqs"] == ["".join("ACGTN"[c] for c in q)
+                                 for q in ref["seqs"]]
 
 
 def _jax_helitron_stage(genome, coarse, cfg, gindex):
@@ -437,3 +428,51 @@ def test_device_cache_dropped_by_masking():
     assert set(g._device_cache) == {("flat_pow2", False)}
     assert g.device_flat_padded(False)[0] is flat_u
     assert int((g.device_flat_padded(True)[0][:5000] == 4).sum()) == 100
+
+
+def write_chunked_reference():
+    """Write `data/reference/chunked_join.json`: for each substrate the
+    JAX package's forced-chunked CopyFinder hits (`_chunked_hits`), the
+    candidates, the padded length, the input codes' digest and the
+    settings the card needs to rebuild the genome index."""
+    import json
+
+    from hite_tpu.pipeline.copies import CopyFinder as JaxFinder
+    from hite_tpu_torch.genome import Genome
+    from hite_tpu_torch.scripts import reference
+
+    out = {}
+    with jax_compile_cache():
+        for name in SUBSTRATES:
+            contigs, params_kw, align_kw = _substrate(name)
+            ref = _replay(False, contigs, params_kw, align_kw)
+            Lp = int(Genome.from_dict(contigs, device="cpu")
+                     .device_flat_padded()[0].shape[0])
+            hits = _chunked_hits(JaxFinder, ref, Lp, _chunked_modes(name))
+            out[name] = {
+                "input_sha256": reference.codes_sha256(contigs),
+                "contigs": list(contigs), "coarse": params_kw,
+                "align": align_kw, "lp": Lp,
+                "seqs": ["".join("ACGTN"[c] for c in q)
+                         for q in ref["seqs"]],
+                "hits": {str(m): [list(map(list, h)) for h in v]
+                         for m, v in hits.items()}}
+            print(name, Lp, len(ref["seqs"]),
+                  {m: sum(map(len, v)) for m, v in hits.items()})
+    with open(reference.path("chunked_join"), "w") as fh:
+        json.dump({"what": "hite_tpu CopyFinder hits with max_libjoin_bp "
+                           "= lp / 2 (tests/test_torch_tir_path.py "
+                           "write-chunked)", "substrates": out}, fh)
+        fh.write("\n")
+
+
+if __name__ == "__main__":
+    import sys
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    if sys.argv[1:] == ["write-chunked"]:
+        write_chunked_reference()
+    else:
+        sys.exit("usage: python tests/test_torch_tir_path.py write-chunked")
