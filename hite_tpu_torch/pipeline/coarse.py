@@ -187,11 +187,12 @@ def _selfjoin_intervals(genome: Genome, cfg: AlignConfig, p: CoarseParams,
     if Lp <= C:
         return _selfjoin_chunk(flat_d, 0, cfg, p)
     out: List[np.ndarray] = []
-    for c0 in _chunk_grid(L, C, halo):
-        count("coarse.selfjoin.chunks")
-        got = _selfjoin_chunk(chunk_slice(flat_d, c0, C), c0, cfg, p)
-        if len(got):
-            out.append(got)
+    with stage_timer("coarse.chunked_selfjoin"):
+        for c0 in _chunk_grid(L, C, halo):
+            count("coarse.selfjoin.chunks")
+            got = _selfjoin_chunk(chunk_slice(flat_d, c0, C), c0, cfg, p)
+            if len(got):
+                out.append(got)
     if not out:
         return np.zeros((0, 2), dtype=np.int64)
     return np.concatenate(out)

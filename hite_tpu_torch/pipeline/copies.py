@@ -46,7 +46,7 @@ from hite_tpu_torch.ops.seedext import pair_hsps
 from hite_tpu_torch.parallel.mesh import Mesh, replicate, run_sharded
 from hite_tpu_torch.pipeline.candidates import pad_rows, pad_seqs
 from hite_tpu_torch.pipeline.coarse import chunk_slice
-from hite_tpu_torch.utils.log import count, logger
+from hite_tpu_torch.utils.log import count, logger, stage_timer
 
 
 @dataclass
@@ -336,15 +336,17 @@ class CopyFinder:
                        fill_w=self._join_fill_w, max_occ=self._join_max_occ,
                        slice_size=self._join_slice)
             for _attempt in range(3):
-                if g_sorted is not None:
-                    res = libjoin_pairs_indexed(*g_sorted, cand_flat_d,
-                                                cand_id_d, slice_quota=quota,
-                                                **jkw)
-                else:
-                    res = libjoin_pairs(chunk_d, cand_flat_d, cand_id_d,
-                                        slice_quota=quota, **jkw)
-                s_cand, s_dbin, s_qpos, s_spos, counts_d = res
-                n_total, n_emit = (int(x) for x in counts_d.cpu().numpy())
+                with stage_timer("copies.join_pairs"):
+                    if g_sorted is not None:
+                        res = libjoin_pairs_indexed(
+                            *g_sorted, cand_flat_d, cand_id_d,
+                            slice_quota=quota, **jkw)
+                    else:
+                        res = libjoin_pairs(chunk_d, cand_flat_d, cand_id_d,
+                                            slice_quota=quota, **jkw)
+                    s_cand, s_dbin, s_qpos, s_spos, counts_d = res
+                    n_total, n_emit = (int(x)
+                                       for x in counts_d.cpu().numpy())
                 if n_total <= n_emit or quota >= 4 * self._join_quota:
                     break
                 quota *= 2
@@ -364,12 +366,20 @@ class CopyFinder:
                     "budget; tail dropped", n_emit, self._join_max_slices,
                     self._join_budget)
                 slices = self._join_max_slices
-            packed = libjoin_scan_packed(
-                s_cand, s_dbin, s_qpos, s_spos, k=k, run_gap=self.run_gap,
-                min_seeds=self.min_seeds, min_hsp_len=cfg.min_hsp_len,
-                max_hsps=self._join_max_hsps,
-                max_seed_pairs=self._join_budget,
-                budget_slices=slices).cpu().numpy()
+            with stage_timer("copies.join_scan"):
+                packed = libjoin_scan_packed(
+                    s_cand, s_dbin, s_qpos, s_spos, k=k,
+                    run_gap=self.run_gap, min_seeds=self.min_seeds,
+                    min_hsp_len=cfg.min_hsp_len,
+                    max_hsps=self._join_max_hsps,
+                    max_seed_pairs=self._join_budget,
+                    budget_slices=slices).cpu().numpy()
+            with stage_timer("copies.join_chain"):
+                _chain(packed, c0, Cl)
+
+        def _chain(packed: np.ndarray, c0: int, Cl: int) -> None:
+            # the scan's HSPs grouped by (candidate, strand, contig) and
+            # chained exactly on the host into each candidate's hits
             cand, qs, qe, ss, se, ns, valid = (
                 packed[i].astype(np.int64) for i in range(7))
             n_good = int(packed[7, 0])
@@ -459,6 +469,7 @@ class CopyFinder:
             # chunks with a halo: any copy lies whole in at least one chunk;
             # cross-chunk duplicates collapse in the dedup tail
             C = self.max_libjoin_bp
+            count("copies.join_items")
             for c0 in join_chunk_starts(Lp, C, int(lens.max())):
                 count("copies.join.chunks")
                 _one_chunk(chunk_slice(flat_d, c0, C), c0, C)

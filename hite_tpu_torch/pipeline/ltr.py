@@ -157,9 +157,10 @@ def ltr_pair_candidates(
     if Lp <= cap:
         one_chunk(flat_d, 0, Lp)
     else:
-        for c0 in _chunk_grid(L, cap, halo):
-            count("ltr.candidates.chunks")
-            one_chunk(chunk_slice(flat_d, c0, cap), c0, cap)
+        with stage_timer("ltr.chunked_candidates"):
+            for c0 in _chunk_grid(L, cap, halo):
+                count("ltr.candidates.chunks")
+                one_chunk(chunk_slice(flat_d, c0, cap), c0, cap)
     return out
 
 

@@ -8,7 +8,7 @@ own spans and the snapshots' nest inside their pipeline stage;
 `gpubench/trace_reduce.stage_intervals` parses every line; the names the
 benchmark's layers (`gpubench/layers.py`) sum are the ones the port
 emitted before these spans; finished families never outnumber analysed
-items; and the three readers of the new spans and counters give their
+items; and the readers of the new spans and counters give their
 values on hand-made contexts.
 """
 
@@ -200,12 +200,31 @@ def _ctx(stage_times=None, counters=None, mbp=2.0):
           counters={"tir.ba_analyze_items": 30}), {}),
     (_ctx(counters={"tir.ba_done_items": 0}), {}),
     (_ctx({"tir.ba_prep": 1.0}, mbp=0.0), {}),
+    # the chunked paths' spans (a 100 Mbp genome's), and the copy join's
+    (_ctx({"coarse.chunked_selfjoin": 3.0, "coarse.selfjoin": 2.5,
+           "ltr.chunked_candidates": 1.0, "copies.join_pairs": 0.5,
+           "copies.join_scan": 0.25, "copies.join_chain": 1.5,
+           "modules.copies": 4.0}, mbp=2.0),
+     {"chunked_selfjoin_s_per_mbp": 1.5,
+      "ltr_chunked_candidates_s_per_mbp": 0.5,
+      "copy_join_device_s_per_mbp": 0.375,
+      "copy_join_host_s_per_mbp": 0.75}),
+    # a genome under every cap: the copy join's spans alone
+    (_ctx({"coarse.selfjoin": 2.5, "copies.join_scan": 0.5}, mbp=0.5),
+     {"copy_join_device_s_per_mbp": 1.0}),
+    # the parent: the copy join's layer without its new spans
+    (_ctx({"modules.copies": 4.0, "pipeline.gindex": 0.1}), {}),
+    (_ctx({"copies.join_chain": 1.0, "coarse.chunked_selfjoin": 1.0},
+          mbp=0.0), {}),
 ])
 def test_readers(ctx, want):
     names = ["ba_prep_s_per_mbp", "ba_batch_s_per_mbp",
-             "boundary_yield_pct"]
+             "boundary_yield_pct", "chunked_selfjoin_s_per_mbp",
+             "ltr_chunked_candidates_s_per_mbp",
+             "copy_join_device_s_per_mbp", "copy_join_host_s_per_mbp"]
     got = read_metrics(names, METRICS_DIR, ctx)
     assert {k: v["value"] for k, v in got.items()} == pytest.approx(want)
     units = {"ba_prep_s_per_mbp": "s/Mbp", "ba_batch_s_per_mbp": "s/Mbp",
              "boundary_yield_pct": "%"}
+    units.update((n, "s/Mbp") for n in names[3:])
     assert all(v["unit"] == units[k] for k, v in got.items())
