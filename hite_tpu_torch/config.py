@@ -109,7 +109,7 @@ class MSAConfig:
     frame_flank: int = 100               # FiLTR both-ends frame width (.matrix files)
     # frames longer than 2x this are analyzed as head+tail concatenations
     # (the reference truncates >1kb copies to first/last 500bp before MSA,
-    # Util.py:8116-8124; see boundary_adjust._prep_family).  The sparse-
+    # Util.py:8116-8124; see boundary_adjust._prep).  The sparse-
     # column removal the reference applies before judging
     # (remove_sparse_col_in_align_file, Util.py:10344) has no equivalent
     # knob here: anchor-projection MSA never creates insertion columns.

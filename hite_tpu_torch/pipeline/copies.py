@@ -27,6 +27,7 @@ to be shown (ROADMAP).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -38,6 +39,7 @@ from hite_tpu_torch.genome import Genome
 from hite_tpu_torch.ops import encode as enc
 from hite_tpu_torch.ops.chain import Chains, chain_hsps, chain_hsps_host
 from hite_tpu_torch.ops.kmer import KmerIndex, build_index
+from hite_tpu_torch.ops.kmerset import minhash_sketches
 from hite_tpu_torch.ops.libjoin import (
     libjoin_genome_sorted, libjoin_pairs, libjoin_pairs_indexed,
     libjoin_scan_packed,
@@ -280,7 +282,8 @@ class CopyFinder:
         """Deal k-mer-sharing candidates into waves of <= fill_w/2 members
         of one group; each wave is one whole-genome join."""
         groups = _kmer_sketch_groups(cand_seqs, k=self.index.cfg.kmer_size,
-                                     thresh=0.15)
+                                     thresh=0.15,
+                                     device=self.index.genome.device)
         chunk = max(1, self._join_fill_w // 2)
         waves: dict = {}
         seen: dict = {}
@@ -496,36 +499,21 @@ _MINHASH_SALTS = np.arange(1, 65, dtype=np.uint64) * np.uint64(
 
 def _kmer_sketch_groups(seqs: Sequence[np.ndarray], k: int,
                         thresh: float = 0.15, sketch: int = 64,
-                        linkage: str = "single") -> List[int]:
+                        linkage: str = "single", *, device,
+                        span: Optional[str] = None) -> List[int]:
     """Group candidates by exact k-mer sharing (min-hash Jaccard).
 
+    The sketches are one batched pass on `device`
+    (`ops.kmerset.minhash_sketches`, timed under `span` when given).
     "single": union-find components over pairs >= thresh (join waves);
     "greedy": cd-hit-style founders in length-ascending order (family
     representatives)."""
     n = len(seqs)
     if n <= 1:
         return [0] * n
-    salts = _MINHASH_SALTS[:sketch]
-    sk = np.full((n, sketch), np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
-    has_sketch = np.zeros(n, bool)
-    for i, s in enumerate(seqs):
-        v = np.asarray(s, np.int64)
-        if len(v) < k:
-            continue
-        m = len(v) - k + 1
-        ok = np.ones(m, bool)
-        code = np.zeros(m, np.int64)
-        for j in range(k):
-            w = v[j : m + j]
-            ok &= w < 4
-            code = code * 4 + np.where(w < 4, w, 0)
-        codes = np.unique(code[ok])
-        if not len(codes):
-            continue
-        h = (codes.astype(np.uint64)[:, None] ^ salts[None, :]) \
-            * np.uint64(0xC2B2AE3D27D4EB4F)
-        sk[i] = h.min(axis=0)
-        has_sketch[i] = True
+    with stage_timer(span) if span else contextlib.nullcontext():
+        sk, has_sketch = minhash_sketches(seqs, k, _MINHASH_SALTS[:sketch],
+                                          device)
     if linkage == "greedy":
         order = sorted(range(n), key=lambda i: len(seqs[i]))
         group = np.full(n, -1, np.int64)

@@ -20,6 +20,7 @@ import numpy as np
 
 from hite_tpu_torch.config import PipelineConfig
 from hite_tpu_torch.genome import Genome
+from hite_tpu_torch.ops.kmerset import kmer_code_set
 from hite_tpu_torch.pipeline.boundary_adjust import (
     Judge, adjust_candidate,
 )
@@ -123,7 +124,8 @@ def prepare_families(genome: Genome, gated: np.ndarray,
     # genomes) transitively merge whole families into one group with one
     # rep, silently dropping the others from the library.
     sim_groups = _kmer_sketch_groups(seqs, k=8, thresh=0.1,
-                                     linkage="greedy")
+                                     linkage="greedy", device=genome.device,
+                                     span="modules.sketch")
     group_members: dict = {}
     for i, g in enumerate(sim_groups):
         group_members.setdefault(int(g), []).append(i)
@@ -315,19 +317,6 @@ def verify_families(
             else:
                 fetch_queue.append((g, interval, 0))
 
-        def _kmer_set(s: np.ndarray, k: int = 16):
-            v = np.asarray(s, np.int64)
-            if len(v) < k:
-                return np.zeros(0, np.int64)
-            m = len(v) - k + 1
-            ok = np.ones(m, bool)
-            code = np.zeros(m, np.int64)
-            for j in range(k):
-                w = v[j : m + j]
-                ok &= w < 4
-                code = code * 4 + np.where(w < 4, w, 0)
-            return np.unique(code[ok])
-
         def superstring_of_accepted(cons: np.ndarray) -> bool:
             """True when `cons` largely CONTAINS an already-accepted
             family's consensus while being much longer — the signature
@@ -337,7 +326,7 @@ def verify_families(
             absorb it in library clustering)."""
             if cons is None or len(cons) == 0:
                 return False
-            sk = _kmer_set(cons)
+            sk = kmer_code_set(cons, 16)
             if not len(sk):
                 return False
             for st2 in family_state.values():
@@ -347,7 +336,7 @@ def verify_families(
                 a = done.consensus
                 if len(cons) <= 1.3 * len(a):
                     continue
-                ak = _kmer_set(a)
+                ak = kmer_code_set(a, 16)
                 if len(ak) and np.isin(ak, sk).mean() >= 0.5:
                     return True
             return False

@@ -26,6 +26,7 @@ MODULES = [
     "hite_tpu_torch.ops.boundary", "hite_tpu_torch.ops.chain",
     "hite_tpu_torch.ops.protein", "hite_tpu_torch.ops.seedext",
     "hite_tpu_torch.ops.lcv", "hite_tpu_torch.ops.tail",
+    "hite_tpu_torch.ops.kmerset",
     "hite_tpu_torch.pipeline.candidates", "hite_tpu_torch.pipeline.coarse",
     "hite_tpu_torch.pipeline.copies", "hite_tpu_torch.pipeline.cluster",
     "hite_tpu_torch.pipeline.boundary_adjust",

@@ -135,6 +135,9 @@ def test_engine_spans_nest_in_their_analysis(run, module):
     ("tir.detect", "pipeline.modules"),
     ("helitron.detect", "pipeline.modules"),
     ("tir.ba_analyze", "tir.detect"),
+    ("tir.ba_score", "tir.ba_prep"),
+    ("helitron.ba_score", "helitron.ba_prep"),
+    ("modules.sketch", "modules.plans"),
     ("modules.snapshot_load", "pipeline.modules"),
     ("modules.snapshot_save", "pipeline.modules"),
     ("coarse.snapshot_save", "pipeline.coarse"),
@@ -174,6 +177,17 @@ def test_done_never_exceeds_analysed(run):
         assert 0 <= done <= counters[f"{m}.ba_analyze_items"]
     assert counters["tir.ba_done_items"] >= 1
     assert not any(k.startswith("boundary.") for k in counters)
+
+
+def test_scored_items_and_sketches_counted(run):
+    """The batched k-mer sets' counters: items whose copies were
+    flank-scored (at most the items analysed) and sequences sketched."""
+    _, _, times, counters = run
+    for m in ("tir", "helitron"):
+        assert 0 <= counters[f"{m}.ba_scored_items"] \
+            <= counters[f"{m}.ba_analyze_items"]
+    assert counters["kmer.sketch_items"] > 0
+    assert times["modules.sketch"] <= times["modules.plans"]
 
 
 def _ctx(stage_times=None, counters=None, mbp=2.0):
